@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (lizard_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from lizard_tpu_torch/csrc with nvcc (into
+build/lizard_tpu_torch/), then runs the port's main path, decoding
+independent compressed streams and blockIndependent frames, and checks
+every result against the input bytes:
+
+1. device: the card, and nvidia-smi's name and power limit;
+2. build: every kernel source, one nvcc each, all started together;
+3. full-size decode: the 32 MB corpus of bench.py::build_corpus in 128 KB
+   independent blocks, compressed at levels 10 and 21, decoded by
+   decompress_lanes on the card; kernel-only time (CUDA events, median),
+   end-to-end time, and the HBM floor;
+4. kernel against plain: lz_decode against lz_decode_plain on the card,
+   on the whole batch of each main level;
+5. level sweep: ~1 MB at levels 12, 19, 29, 35, 41;
+6. frames: a level-21 frame with 4 MB blocks (32 chained inner blocks,
+   off24 matches present) and a level-10 frame with 128 KB blocks;
+   each sweep level and frame is held against the plain version too, on
+   the kernel inputs that its own path gives;
+7. corruption: truncated and altered streams raise CorruptError;
+8. the kernels line (one JSON object per kernel);
+9. the last line: {"ok": true, "device": {...}}.
+
+Any mismatch or exception exits non-zero; with no CUDA device, or without
+the package beside it, it exits non-zero and prints no result.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
+BLOCK = 128 * 1024
+CORPUS_BYTES = 32 << 20
+MAIN_LEVELS = (10, 21)
+SWEEP_LEVELS = (12, 19, 29, 35, 41)
+KERNEL_REPS = 10
+PLAIN_TOLERANCE = 0            # decoded bytes, lengths, status: exact
+
+
+def emit(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() over `reps` runs, timed by CUDA events
+    (two warm-up runs first)."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def e2e_ms(decompress_lanes, streams, reps: int = 5) -> list[float]:
+    """Host-clock milliseconds of `reps` whole decompress_lanes calls (host
+    bytes in, host bytes out; the call ends in a device-to-host copy)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        decompress_lanes(streams)
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def staged_bytes(args: dict) -> int:
+    """Bytes lz_decode must read: the four streams and both tables."""
+    return sum(args[k].numel() * args[k].element_size()
+               for k in ("flags", "literals", "off16", "off24", "blocks",
+                         "chains"))
+
+
+def hold_against_plain(tld, args: dict, what: str) -> dict:
+    """lz_decode against lz_decode_plain on the same staged inputs on the
+    card: block lengths and status exactly (every chain OK), the decoded
+    bytes within PLAIN_TOLERANCE. Emits and returns the comparison; the
+    plain version's time is host-clock, synchronised."""
+    import torch
+    k = tld.lz_decode(**args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = tld.lz_decode_plain(**args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    for name, a, b in (("block_len", k[1], p[1]), ("status", k[2], p[2])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the plain "
+                                 "version")
+    if (k[2] != tld.OK).any():
+        raise AssertionError(f"{what}: a chain did not decode")
+    kb = torch.cat(tld.chain_outputs(k[0], k[1], args["chains"]))
+    pb = torch.cat(tld.chain_outputs(p[0], p[1], args["chains"]))
+    err = int((kb.int() - pb.int()).abs().max()) if kb.numel() else 0
+    if err > PLAIN_TOLERANCE:
+        raise AssertionError(f"{what}: bytes differ from the plain version")
+    rec = {"what": what, "chains": int(args["chains"].shape[0]),
+           "inner_blocks": int(args["blocks"].shape[0]),
+           "bytes": int(kb.numel()), "max_abs_err": err, "plain_ms": plain_ms}
+    emit("kernel_vs_plain", **rec)
+    return rec
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lizard_tpu_torch as ltt
+    from lizard_tpu_torch import runtime
+    from lizard_tpu_torch.errors import CorruptError
+    from lizard_tpu_torch.format.constants import LIZARDF_BLOCK_SIZES
+    from lizard_tpu_torch.frame import compress_frame_fast
+    from lizard_tpu_torch.ops import _build
+    from lizard_tpu_torch.ops import lane_decode as tld
+    from lizard_tpu_torch.ops.lane_decode import (
+        decode_batch_lanes, decompress_lanes, lz_decode, stage_batch)
+    from lizard_tpu_torch.ops.split import split_streams
+    from lizard_tpu_torch.utils.datagen import build_corpus, gen
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("device", kind=kind, count=count, torch=torch.__version__,
+         cuda=torch.version.cuda)
+    print(smi, flush=True)
+
+    # 2. build: the kernels (one nvcc per source, all started together),
+    # then the native host runtime (g++) if it is missing
+    t0 = time.perf_counter()
+    logs = _build.build()
+    for name in _build.sources():
+        _build.load(name)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runtime.xxh32(b"")
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n, log in logs.items()}
+    emit("build", seconds=build_s, native_seconds=time.perf_counter() - t0,
+         kernels=_build.sources(), ptxas=ptxas)
+
+    # 3. full-size decode at levels 10 and 21
+    corpus = build_corpus(CORPUS_BYTES)
+    chunks = [corpus[i:i + BLOCK] for i in range(0, len(corpus), BLOCK)]
+    main_launches = 0
+    timing = {}
+    staged = {}
+    for level in MAIN_LEVELS:
+        streams = [runtime.compress(c, level) for c in chunks]
+        comp = sum(map(len, streams))
+        lz_decode.launches = 0
+        outs = decompress_lanes(streams)          # the card: device=None
+        torch.cuda.synchronize()
+        launches = lz_decode.launches
+        if b"".join(outs) != corpus:
+            raise AssertionError(f"level {level}: decode != corpus")
+        if launches < 1:
+            raise AssertionError(f"level {level}: lz_decode never launched")
+        main_launches += launches
+        e2e_runs = e2e_ms(decompress_lanes, streams)
+        e2e_s = statistics.median(e2e_runs) / 1e3
+        # the same path once more, step by step: host split, H2D, kernel,
+        # D2H (each step synchronised), then decode_batch_lanes whole (the
+        # last three steps plus cutting the output into blocks)
+        steps = {}
+        t = time.perf_counter()
+        batch = split_streams(streams)
+        steps["split_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        args = stage_batch(batch, "cuda")
+        torch.cuda.synchronize()
+        steps["h2d_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out, block_len, _ = lz_decode(**args)
+        torch.cuda.synchronize()
+        steps["kernel_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out.cpu(), block_len.cpu()
+        steps["d2h_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        decode_batch_lanes(batch)
+        steps["decode_batch_lanes_ms"] = (time.perf_counter() - t) * 1e3
+        staged[level] = (streams, args)
+        k_ms = cuda_ms(lambda: lz_decode(**args), KERNEL_REPS)
+        read = staged_bytes(args)
+        written = len(corpus) + 4 * args["blocks"].shape[0] \
+            + 4 * args["chains"].shape[0]
+        bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+        timing[level] = {"ms": k_ms, "bound_ms": bound_ms,
+                         "read_bytes": read, "written_bytes": written}
+        emit("decode", level=level, streams=len(streams),
+             compressed_bytes=comp, decoded_bytes=len(corpus),
+             launches=launches, kernel_ms=k_ms,
+             kernel_gbps=len(corpus) / k_ms / 1e6,
+             e2e_ms=e2e_s * 1e3, e2e_gbps=len(corpus) / e2e_s / 1e9,
+             e2e_runs_ms=e2e_runs, hbm_floor_ms=bound_ms, steps=steps,
+             card=smi)
+    # the first level's end-to-end time again, after the other level's
+    again = e2e_ms(decompress_lanes, staged[MAIN_LEVELS[0]][0])
+    emit("decode_again", level=MAIN_LEVELS[0],
+         e2e_ms=statistics.median(again), e2e_runs_ms=again)
+
+    # 4. kernel against plain, on the card: the whole batch of each main
+    # level. The sweep and the frames below are held against it too, each
+    # at its own shape, after its own run of the path.
+    plain_ms = {}
+    max_err = 0
+    for level in MAIN_LEVELS:
+        rec = hold_against_plain(tld, staged[level][1],
+                                 f"level {level}, {len(chunks)} x 128 KB")
+        plain_ms[level] = rec["plain_ms"]
+        max_err = max(max_err, rec["max_abs_err"])
+
+    # 5. level sweep, ~1 MB each
+    sweep = corpus[:8 * BLOCK]
+    for level in SWEEP_LEVELS:
+        streams = [runtime.compress(sweep[i:i + BLOCK], level)
+                   for i in range(0, len(sweep), BLOCK)]
+        lz_decode.launches = 0
+        outs = decompress_lanes(streams)
+        torch.cuda.synchronize()
+        launches = lz_decode.launches
+        if b"".join(outs) != sweep or launches < 1:
+            raise AssertionError(f"sweep level {level} failed")
+        rec = hold_against_plain(
+            tld, stage_batch(split_streams(streams), "cuda"),
+            f"sweep level {level}")
+        max_err = max(max_err, rec["max_abs_err"])
+        emit("sweep", level=level, bytes=len(sweep), launches=launches,
+             entropy="host (native Huff0)" if level >= 30 else "none")
+
+    # 6. frames
+    a = gen(1_500_000, seed=1, proba=0.5)
+    far = (a + gen(1_200_000, seed=2, proba=0.5) + a)[:4 << 20]
+    for level, bsid, data in ((21, 4, far), (10, 1, corpus[:2 << 20])):
+        frame = compress_frame_fast(data, level, block_size_id=bsid)
+        lz_decode.launches = 0
+        got = ltt.decompress_frame(frame)
+        torch.cuda.synchronize()
+        launches = lz_decode.launches
+        if got != data or launches < 1:
+            raise AssertionError(f"frame level {level} bsid {bsid} failed")
+        # the kernel's inputs on this path: the frame's compressed blocks,
+        # made as compress_frame_fast makes them (stored blocks are copied)
+        size = LIZARDF_BLOCK_SIZES[bsid]
+        parts = [data[i:i + size] for i in range(0, len(data), size)]
+        streams = [s for s, part in
+                   ((runtime.compress(part, level), part) for part in parts)
+                   if len(s) < len(part)]
+        batch = split_streams(streams)
+        if level == 21 and batch.off24.numel() == 0:
+            raise AssertionError("the 4 MB level-21 block has no off24 "
+                                 "matches")
+        rec = hold_against_plain(tld, stage_batch(batch, "cuda"),
+                                 f"frame level {level} bsid {bsid}")
+        max_err = max(max_err, rec["max_abs_err"])
+        emit("frame", level=level, block_size_id=bsid, bytes=len(data),
+             frame_bytes=len(frame), launches=launches,
+             inner_blocks=rec["inner_blocks"],
+             off24_bytes=int(batch.off24.numel()))
+
+    # 7. corruption: each case must raise CorruptError
+    raised = corruption_cases(staged, runtime, decompress_lanes, CorruptError)
+    if ltt.decompress(staged[10][0][0]) != corpus[:BLOCK]:
+        raise AssertionError("a valid decode failed after the corrupt ones")
+    torch.cuda.synchronize()
+    emit("corruption", raised=raised)
+
+    # 8. kernels line
+    t10 = timing[MAIN_LEVELS[0]]
+    print(json.dumps({"kernels": [{
+        "name": "lz_decode",
+        "route": "cuda",
+        "source": "lizard_tpu_torch/csrc/lz_decode.cu",
+        "replaces": "lizard_tpu/ops/lane_decode.py:328::_lane_kernel",
+        "launches": main_launches,
+        "max_abs_err": max_err,
+        "tolerance": PLAIN_TOLERANCE,
+        "matches_plain": max_err <= PLAIN_TOLERANCE,
+        "ms": t10["ms"],
+        "plain_ms": plain_ms[MAIN_LEVELS[0]],
+        "bound_ms": t10["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"level {MAIN_LEVELS[0]}, {len(chunks)} chains x 128 KB",
+        "ms_by_level": {str(lv): timing[lv]["ms"] for lv in MAIN_LEVELS},
+        "plain_ms_by_level": {str(lv): plain_ms[lv] for lv in MAIN_LEVELS},
+        "bound_ms_by_level": {str(lv): timing[lv]["bound_ms"]
+                              for lv in MAIN_LEVELS},
+    }]}), flush=True)
+
+    # 9. last line
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+def corruption_cases(staged, runtime, decompress_lanes, CorruptError) -> dict:
+    """Truncations (caught by the host split) and altered token streams and
+    oversized blocks (caught by the kernel's status)."""
+    lz4 = staged[10][0][0]
+    liz = staged[21][0][0]
+    cases = {
+        "truncated_half": lz4[:len(lz4) // 2],
+        "truncated_tail": lz4[:-1],
+        "liz_truncated": liz[:len(liz) // 3],
+        "flipped_level_byte": bytes([lz4[0] ^ 0xA5]) + lz4[1:],
+        "lz4_first_token_0": _set_first_token(lz4, 0x00),
+        "liz_first_token_0": _set_first_token(liz, 0x00),
+        "liz_rep_without_offset": _set_first_token(liz, 0x88),
+        "oversized_stored_block": bytes([10, 0x80]) + (200_000).to_bytes(3, "little")
+        + bytes(200_000),
+    }
+    raised = {}
+    for name, s in cases.items():
+        try:
+            decompress_lanes([s])
+        except CorruptError as e:
+            raised[name] = str(e)
+            continue
+        raise AssertionError(f"corruption case {name} did not raise")
+    return raised
+
+
+def _set_first_token(stream: bytes, token: int) -> bytes:
+    """`stream` (one raw-coded inner block) with its first flags byte set to
+    `token`. Streams of a block: len, off16, off24, flags, literals, each a
+    LE24 length and its bytes."""
+    s = bytearray(stream)
+    if s[1] & 0x80 or s[1] & 0x02:
+        raise ValueError("first block is stored or its flags are Huffman-coded")
+    p = 2
+    for _ in range(3):                           # skip len, off16, off24
+        p += 3 + int.from_bytes(s[p:p + 3], "little")
+    if int.from_bytes(s[p:p + 3], "little") == 0:
+        raise ValueError("first block has no tokens")
+    s[p + 3] = token
+    return bytes(s)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Top-level one-shot API of the port (the counterpart of lizard_tpu/api.py):
+block-stream compression through the native encoder, and block-stream and
+frame decompression on the card (device=None means "cuda"; pass
+device="cpu" for the plain PyTorch route)."""
+
+from lizard_tpu_torch import runtime
+from lizard_tpu_torch.errors import CorruptError
+from lizard_tpu_torch.format.constants import LIZARD_DEFAULT_CLEVEL
+from lizard_tpu_torch.frame import decompress_frame_lanes
+from lizard_tpu_torch.ops.lane_decode import decompress_lanes
+
+
+def compress(data: bytes, level: int = LIZARD_DEFAULT_CLEVEL,
+             backend: str = "native", max_out: int | None = None) -> bytes:
+    """One-shot block-stream compression (Lizard_compress equivalent)
+    through the native C++ encoder: all 40 levels, valid streams, not
+    byte-identical to liblizard. The bit-exact "ref" encoder waits for the
+    port of the oracle."""
+    if backend != "native":
+        raise NotImplementedError(
+            f"backend {backend!r}: only 'native' is ported so far")
+    return runtime.compress(data, level, max_out=max_out)
+
+
+def decompress(data: bytes, max_out: int | None = None, device=None) -> bytes:
+    """One-shot block-stream decompression (Lizard_decompress_safe) on
+    `device`: a one-stream decompress_lanes."""
+    out = decompress_lanes([data], device=device)[0]
+    if max_out is not None and len(out) > max_out:
+        raise CorruptError("output exceeds max_out")
+    return out
+
+
+def decompress_frame(data: bytes, device=None) -> bytes:
+    """Decode one blockIndependent frame on `device`
+    (frame.decompress_frame_lanes)."""
+    return decompress_frame_lanes(data, device=device)

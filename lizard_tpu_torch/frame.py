@@ -1,0 +1,224 @@
+"""Lizard frame format, decode side and the fast encoder (the port of the
+matching parts of lizard_tpu/frame.py; doc/lizard_Frame_format.md,
+lib/lizard_frame.c).
+
+Container: magic, descriptor (FLG/BD/contentSize/HC), LE32-size-prefixed
+blocks (high bit = stored), endmark, optional xxh32 content checksum.
+`decompress_frame_lanes` decodes every block of a blockIndependent frame as
+one chain of the CUDA LZ kernel (ops/lane_decode.py).
+"""
+
+from lizard_tpu_torch import runtime
+from lizard_tpu_torch.errors import CorruptError
+from lizard_tpu_torch.format.constants import (
+    LIZARDF_BLOCK_SIZES,
+    LIZARDF_BLOCKUNCOMPRESSED_FLAG,
+    LIZARDF_MAGIC,
+    LIZARDF_MAGIC_SKIPPABLE_START,
+)
+from lizard_tpu_torch.format.levels import LEVELS, validate_level
+from lizard_tpu_torch.ops.lane_decode import decompress_lanes, resolve_device
+from lizard_tpu_torch.runtime import xxh32
+
+
+class FrameError(ValueError):
+    pass
+
+
+def _optimal_bsid(requested: int, src_size: int) -> int:
+    """LizardF_optimalBSID (lizard_frame.c:203-218)."""
+    proposed = 1
+    while requested > proposed:
+        if src_size <= LIZARDF_BLOCK_SIZES[proposed]:
+            return proposed
+        proposed += 1
+    return requested
+
+
+class FrameInfo:
+    def __init__(self):
+        self.block_size_id = 0
+        self.block_linked = False
+        self.content_checksum = False
+        self.content_size = None
+        self.header_size = 0
+
+
+def parse_frame_header(src: bytes) -> FrameInfo:
+    """LizardF_decodeHeader (lizard_frame.c:756-857)."""
+    if len(src) < 7:
+        raise FrameError("frame header truncated")
+    magic = int.from_bytes(src[0:4], "little")
+    if magic != LIZARDF_MAGIC:
+        raise FrameError(f"bad magic {magic:#x}")
+    flg = src[4]
+    bd = src[5]
+    if (flg >> 6) & 3 != 1:
+        raise FrameError("unsupported frame version")
+    if flg & 0b11 or bd & 0b10001111:
+        raise FrameError("reserved bits set")
+    if (flg >> 4) & 1:
+        raise FrameError("block checksum unsupported")  # as in the reference
+    info = FrameInfo()
+    info.block_linked = ((flg >> 5) & 1) == 0
+    info.content_checksum = bool((flg >> 2) & 1)
+    has_size = bool((flg >> 3) & 1)
+    bsid = (bd >> 4) & 7
+    if bsid not in LIZARDF_BLOCK_SIZES:
+        raise FrameError("bad blockSizeID")
+    info.block_size_id = bsid
+    p = 6
+    if has_size:
+        if len(src) < 15:
+            raise FrameError("frame header truncated")
+        info.content_size = int.from_bytes(src[6:14], "little")
+        p = 14
+    hc = src[p]
+    if (xxh32(bytes(src[4:p])) >> 8) & 0xFF != hc:
+        raise FrameError("header checksum mismatch")
+    info.header_size = p + 1
+    return info
+
+
+def decoded_size_bound(src: bytes) -> int:
+    """Tight upper bound on the decoded size of a (possibly concatenated)
+    frame stream, from headers alone — contentSize when stored, otherwise
+    block-count x maxBlockSize (sizing analogue of lizardio.c:647-698).
+    Raises FrameError on malformed input."""
+    bound = 0
+    p = 0
+    n = len(src)
+    while p < n:
+        magic = int.from_bytes(src[p:p + 4], "little") if p + 4 <= n else -1
+        if (magic & 0xFFFFFFF0) == LIZARDF_MAGIC_SKIPPABLE_START:
+            if p + 8 > n:
+                raise FrameError("skippable frame truncated")
+            p += 8 + int.from_bytes(src[p + 4:p + 8], "little")
+            continue
+        info = parse_frame_header(src[p:])
+        p += info.header_size
+        max_block = LIZARDF_BLOCK_SIZES[info.block_size_id]
+        frame_bound = 0
+        while True:
+            if p + 4 > n:
+                raise FrameError("missing endmark")
+            bsize = int.from_bytes(src[p:p + 4], "little")
+            p += 4
+            if bsize == 0:
+                break
+            stored = bool(bsize & LIZARDF_BLOCKUNCOMPRESSED_FLAG)
+            bsize &= ~LIZARDF_BLOCKUNCOMPRESSED_FLAG
+            frame_bound += bsize if stored else max_block
+            p += bsize
+        if p > n:
+            raise FrameError("block truncated")
+        if info.content_checksum:
+            p += 4
+        bound += (info.content_size if info.content_size is not None
+                  else frame_bound)
+    return bound
+
+
+def compress_frame_fast(data: bytes, level: int = 11,
+                        block_size_id: int = 0,
+                        content_checksum: bool = True,
+                        content_size: bool = False) -> bytes:
+    """Fast frame compression: blockIndependent frame, each block compressed
+    by the native C++ encoder (valid streams for any level 10..49 including
+    the Huff0 stage at >= 30; not byte-identical to the reference)."""
+    level = validate_level(level)
+    if block_size_id == 0:
+        block_size_id = 1
+    block_size_id = _optimal_bsid(block_size_id, len(data))
+    block_size = LIZARDF_BLOCK_SIZES[block_size_id]
+
+    out = bytearray()
+    out += LIZARDF_MAGIC.to_bytes(4, "little")
+    flg = (1 << 6) | (1 << 5) | (int(content_checksum) << 2) \
+        | ((1 if content_size else 0) << 3)
+    header = bytearray([flg, (block_size_id & 7) << 4])
+    if content_size:
+        header += len(data).to_bytes(8, "little")
+    out += header
+    out.append((xxh32(bytes(header)) >> 8) & 0xFF)
+
+    for pos in range(0, len(data), block_size):
+        part = data[pos:pos + block_size]
+        comp = runtime.compress(part, level)
+        if len(comp) >= len(part):
+            out += (len(part) | LIZARDF_BLOCKUNCOMPRESSED_FLAG).to_bytes(4, "little")
+            out += part
+        else:
+            out += len(comp).to_bytes(4, "little")
+            out += comp
+    out += (0).to_bytes(4, "little")
+    if content_checksum:
+        out += xxh32(data).to_bytes(4, "little")
+    return bytes(out)
+
+
+def decompress_frame_lanes(src: bytes, device=None,
+                           entropy: str = "host") -> bytes:
+    """Decode one blockIndependent frame on `device` (the card unless
+    device="cpu"). Every compressed frame block is a stream of chained inner
+    blocks, decoded as one chain of the LZ kernel; stored blocks are copied.
+    Levels 30-49 take the host entropy route (entropy="host"). Raises
+    FrameError for a linked frame and for any malformed frame or block."""
+    dev = resolve_device(device)
+    info = parse_frame_header(src)
+    if info.block_linked:
+        raise FrameError("lane path requires blockIndependent frames")
+    p = info.header_size
+    entries = []   # ("stored", bytes) | ("stream", index)
+    streams = []
+    family = None
+    while True:
+        if p + 4 > len(src):
+            raise FrameError("missing endmark")
+        bsize = int.from_bytes(src[p:p + 4], "little")
+        p += 4
+        if bsize == 0:
+            break
+        stored = bool(bsize & LIZARDF_BLOCKUNCOMPRESSED_FLAG)
+        bsize &= ~LIZARDF_BLOCKUNCOMPRESSED_FLAG
+        if p + bsize > len(src):
+            raise FrameError("block truncated")
+        blob = src[p:p + bsize]
+        p += bsize
+        if stored:
+            entries.append(("stored", blob))
+            continue
+        level = blob[0] if blob else 0
+        if level not in LEVELS:
+            raise FrameError("bad level byte")
+        fam = LEVELS[level].codewords
+        if family is None:
+            family = fam
+        elif family != fam:
+            raise FrameError("mixed codeword families")
+        entries.append(("stream", len(streams)))
+        streams.append(blob)
+    decoded = []
+    if streams:
+        try:
+            decoded = decompress_lanes(streams, device=dev, entropy=entropy)
+        except CorruptError as e:
+            raise FrameError(f"block decode failed: {e}") from e
+    max_block = LIZARDF_BLOCK_SIZES[info.block_size_id]
+    out = bytearray()
+    for kind, v in entries:
+        if kind == "stream" and len(decoded[v]) > max_block:
+            raise FrameError("block decodes beyond the frame's block size")
+        out += v if kind == "stored" else decoded[v]
+    if info.content_checksum:
+        if p + 4 > len(src):
+            raise FrameError("missing content checksum")
+        stored_crc = int.from_bytes(src[p:p + 4], "little")
+        p += 4
+        if xxh32(bytes(out)) != stored_crc:
+            raise FrameError("content checksum mismatch")
+    if info.content_size is not None and info.content_size != len(out):
+        raise FrameError("content size mismatch")
+    if p != len(src):
+        raise FrameError("trailing data after frame")
+    return bytes(out)

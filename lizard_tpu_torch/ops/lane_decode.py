@@ -1,0 +1,374 @@
+"""LZ block decode of post-entropy streams on the card: the port of
+lizard_tpu/ops/lane_decode.py (decode_batch_lanes, decompress_lanes, and its
+Pallas kernel `_lane_kernel`, here the CUDA kernel csrc/lz_decode.cu).
+
+The unit of work is a CHAIN: the consecutive inner blocks of one compressed
+stream, which share one LZ77 window (64 KB for fastLZ4, up to 16 MB for
+LIZv1). The kernel gives each chain one warp and writes the chain's output
+contiguously at its base (first block index x LIZARD_BLOCK_SIZE), so match
+sources are read straight from the chain's own output in device memory.
+None of the TPU kernel's layout is needed: no (R,128) word pool, no slots
+or bands, no VMEM ring or far window, and so no host fallback. A chain
+whose non-final inner block is short decodes like any other.
+
+`lz_decode` is the kernel wrapper; `lz_decode_plain` is the plain PyTorch
+version with the same signature and outputs. A CPU tensor goes to the plain
+version; a CUDA tensor launches the kernel or raises.
+"""
+
+import ctypes
+
+import torch
+
+from lizard_tpu_torch.errors import CorruptError
+from lizard_tpu_torch.format.constants import (
+    LIZARD_BLOCK_SIZE,
+    LIZARD_LAST_LONG_OFF,
+    MAX_SHORT_LITLEN,
+    MAX_SHORT_MATCHLEN,
+    MINMATCH,
+    ML_MASK_LZ4,
+    ML_RUN_BITS,
+    MM_LONGOFF,
+    RUN_BITS_LIZ,
+    RUN_BITS_LZ4,
+    RUN_MASK_LZ4,
+)
+from lizard_tpu_torch.format.levels import Codewords
+from lizard_tpu_torch.ops import _build
+from lizard_tpu_torch.ops.split import STREAMS, BlockBatch, split_streams
+
+# per-chain status codes, shared with csrc/lz_decode.cu
+OK = 0
+ERR_LEN_EXT = -1        # length extension past the literals stream
+ERR_LITERALS = -2       # literal run past its margin (iend-(2+16) / iend-16)
+ERR_OFFSET = -3         # offset 0 or before the chain's start
+ERR_OFF16 = -4          # off16 stream overrun
+ERR_OFF24 = -5          # off24 stream overrun
+ERR_REP0 = -6           # non-empty repeat match with last_off == 0
+ERR_CAPACITY = -7       # block output beyond LIZARD_BLOCK_SIZE
+STATUS_TEXT = {
+    ERR_LEN_EXT: "length extension past literals end",
+    ERR_LITERALS: "literals overrun",
+    ERR_OFFSET: "offset out of window",
+    ERR_OFF16: "off16 overrun",
+    ERR_OFF24: "off24 overrun",
+    ERR_REP0: "rep match with last_off==0",
+    ERR_CAPACITY: "block output exceeds LIZARD_BLOCK_SIZE",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port runs on the card unless the caller asks for the CPU:
+    device=None means "cuda", and raises when there is no CUDA device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device; pass device='cpu' to decode on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def chain_table(stream_id: torch.Tensor) -> torch.Tensor:
+    """(n_chains, 3) int64 rows (first block, block count, output base) for
+    the runs of equal consecutive stream ids. A chain's output capacity is
+    its block count x LIZARD_BLOCK_SIZE, starting at its base."""
+    n = stream_id.numel()
+    if n == 0:
+        return torch.zeros((0, 3), dtype=torch.int64)
+    new = torch.ones(n, dtype=torch.bool)
+    new[1:] = stream_id[1:] != stream_id[:-1]
+    first = torch.nonzero(new).flatten()
+    count = torch.diff(first, append=torch.tensor([n]))
+    return torch.stack([first, count, first * LIZARD_BLOCK_SIZE], dim=1)
+
+
+def stage_batch(batch: BlockBatch, device) -> dict:
+    """Move a batch to `device` once: the four flat streams, the block
+    table and the chain table, as the keyword arguments of lz_decode."""
+    batch.validate()
+    args = {name: getattr(batch, name).to(device) for name in STREAMS}
+    args["blocks"] = batch.block_table().to(device)
+    args["chains"] = chain_table(batch.stream_id).to(device)
+    args["family"] = 1 if batch.codewords == Codewords.LIZv1 else 0
+    return args
+
+
+def _check(flags, literals, off16, off24, blocks, chains, family):
+    dev = flags.device
+    for name, t in (("flags", flags), ("literals", literals),
+                    ("off16", off16), ("off24", off24)):
+        if t.dtype != torch.uint8 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, flags on {dev}")
+    for name, t, width in (("blocks", blocks, 8), ("chains", chains, 3)):
+        if (t.dtype != torch.int64 or t.dim() != 2 or t.shape[1] != width
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous (n, {width}) int64 tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, flags on {dev}")
+    if family not in (0, 1):
+        raise ValueError(f"family must be 0 (fastLZ4) or 1 (LIZv1), got {family}")
+
+
+def _outputs(blocks, chains, device):
+    n_blocks, n_chains = blocks.shape[0], chains.shape[0]
+    out = torch.empty(n_blocks * LIZARD_BLOCK_SIZE, dtype=torch.uint8,
+                      device=device)
+    block_len = torch.empty(n_blocks, dtype=torch.int32, device=device)
+    status = torch.empty(n_chains, dtype=torch.int32, device=device)
+    return out, block_len, status
+
+
+def _launcher():
+    """The C entry of csrc/lz_decode.cu: every pointer and the stream as
+    c_void_p (an undeclared pointer would be cut to 32 bits)."""
+    fn = _build.load("lz_decode").lz_decode_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_int64, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4)
+    return fn
+
+
+def lz_decode(flags, literals, off16, off24, blocks, chains, family):
+    """Decode every chain of a staged batch (see stage_batch).
+
+    Returns (out uint8 [n_blocks * LIZARD_BLOCK_SIZE], block_len int32
+    [n_blocks], status int32 [n_chains]). Chain c's bytes lie contiguously
+    at out[chains[c, 2]:], its blocks' lengths in block_len; status 0 = ok,
+    negative = corrupt (STATUS_TEXT), and then the lengths of the failing
+    block and every later block of the chain are -1. Bytes past a chain's
+    decoded length are undefined.
+
+    CUDA tensors launch csrc/lz_decode.cu on the current stream without
+    synchronising; CPU tensors run lz_decode_plain."""
+    _check(flags, literals, off16, off24, blocks, chains, family)
+    if flags.device.type == "cpu":
+        return lz_decode_plain(flags, literals, off16, off24, blocks, chains,
+                               family)
+    if flags.device.type != "cuda":
+        raise ValueError(f"lz_decode runs on cuda or cpu, not {flags.device}")
+    out, block_len, status = _outputs(blocks, chains, flags.device)
+    if chains.shape[0] == 0:
+        return out, block_len, status
+    fn = _launcher()
+    with torch.cuda.device(flags.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(flags.data_ptr(), literals.data_ptr(), off16.data_ptr(),
+                 off24.data_ptr(), blocks.data_ptr(), chains.data_ptr(),
+                 chains.shape[0], family,
+                 out.data_ptr(), block_len.data_ptr(), status.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"lz_decode launch failed: cudaError {err}")
+    lz_decode.launches += 1
+    return out, block_len, status
+
+
+lz_decode.launches = 0
+
+
+def chain_outputs(out, block_len, chains) -> list[torch.Tensor]:
+    """The decoded bytes of each chain of an lz_decode result whose status
+    is OK, as views of `out` on its device."""
+    lens = block_len.cpu().tolist()
+    return [out[base:base + sum(lens[first:first + count])]
+            for first, count, base in chains.cpu().tolist()]
+
+
+class _Corrupt(Exception):
+    def __init__(self, code):
+        self.code = code
+
+
+def _ext(lit: bytes, lp: int, iend: int) -> tuple[int, int]:
+    """Length extension at lit[lp] (doc/lizard_Block_format.md:91-96):
+    byte <254 -> value; 254 -> LE16 follows; 255 -> LE24 follows. Returns
+    (value, new lp); every byte read must lie before iend."""
+    if lp > iend - 1:
+        raise _Corrupt(ERR_LEN_EXT)
+    first = lit[lp]
+    need = 1 if first < 254 else (3 if first == 254 else 4)
+    if lp + need > iend:
+        raise _Corrupt(ERR_LEN_EXT)
+    if first == 254:
+        return lit[lp + 1] | (lit[lp + 2] << 8), lp + 3
+    if first == 255:
+        return lit[lp + 1] | (lit[lp + 2] << 8) | (lit[lp + 3] << 16), lp + 4
+    return first, lp + 1
+
+
+def lz_decode_plain(flags, literals, off16, off24, blocks, chains, family):
+    """The plain PyTorch version of lz_decode: same inputs, same outputs.
+
+    A Python loop over tokens (the streams are read as host bytes); literal
+    runs are tensor slices, and matches gather the index tensor
+    `start + arange(len) % off` from the output, on the inputs' device.
+    The semantics and the order of the corruption checks are those of
+    lizard_tpu/ref/block_decode.py (stricter only where that oracle would
+    read past a stream's end)."""
+    _check(flags, literals, off16, off24, blocks, chains, family)
+    dev = flags.device
+    out, block_len, status = _outputs(blocks, chains, dev)
+    host = {n: t.cpu().numpy().tobytes() for n, t in
+            zip(STREAMS, (flags, literals, off16, off24))}
+    table = blocks.cpu().tolist()
+    lens = [-1] * len(table)
+    codes = []
+    for first, count, base in chains.cpu().tolist():
+        op = 0                                    # chain-relative output
+        code = OK
+        for b in range(first, first + count):
+            bstart = op
+            try:
+                op = _decode_block(host, table[b], family, literals, out,
+                                   base, op, bstart + LIZARD_BLOCK_SIZE)
+            except _Corrupt as e:
+                code = e.code
+                break
+            lens[b] = op - bstart
+        codes.append(code)
+    block_len.copy_(torch.tensor(lens, dtype=torch.int32))
+    status.copy_(torch.tensor(codes, dtype=torch.int32))
+    return out, block_len, status
+
+
+def _decode_block(host, row, family, literals, out, base, op, bend):
+    """One inner block: returns the chain-relative output position after
+    it. out[base + p] holds chain byte p; bend caps the block's output.
+    `host` holds the flat streams as bytes (for the token parse),
+    `literals` the flat literals tensor (for the copies)."""
+    f0, flen, l0, llen, s0, slen, t0, tlen = row
+    fl = host["flags"][f0:f0 + flen]
+    lit = host["literals"][l0:l0 + llen]
+    o16 = host["off16"][s0:s0 + slen]
+    o24 = host["off24"][t0:t0 + tlen]
+    iend = llen
+    lp = p16 = p24 = 0
+    last_off = 0
+
+    def put_literals(op, lp, n):
+        if op + n > bend:
+            raise _Corrupt(ERR_CAPACITY)
+        if n:
+            out[base + op:base + op + n] = literals[l0 + lp:l0 + lp + n]
+        return op + n
+
+    def put_match(op, off, n):
+        if op + n > bend:
+            raise _Corrupt(ERR_CAPACITY)
+        if n:
+            start = base + op - off
+            if off >= n:
+                out[base + op:base + op + n] = out[start:start + n]
+            else:
+                idx = start + torch.arange(n, device=out.device) % off
+                out[base + op:base + op + n] = out[idx]
+        return op + n
+
+    for token in fl:
+        if family == 0:
+            # fastLZ4 (lizard_decompress_lz4.h): lengths and the LE16
+            # offset are read from the literals stream
+            length = token & RUN_MASK_LZ4
+            if length == RUN_MASK_LZ4:
+                if lp > iend - 5:
+                    raise _Corrupt(ERR_LEN_EXT)
+                ext, lp = _ext(lit, lp, iend)
+                length += ext
+            if lp + length > iend - (2 + 16):
+                raise _Corrupt(ERR_LITERALS)
+            op = put_literals(op, lp, length)
+            lp += length
+            off = lit[lp] | (lit[lp + 1] << 8)
+            lp += 2
+            if off == 0 or op - off < 0:
+                raise _Corrupt(ERR_OFFSET)
+            length = token >> RUN_BITS_LZ4
+            if length == ML_MASK_LZ4:
+                if lp > iend - 5:
+                    raise _Corrupt(ERR_LEN_EXT)
+                ext, lp = _ext(lit, lp, iend)
+                length += ext
+            op = put_match(op, off, length + MINMATCH)
+            continue
+        # LIZv1 (lizard_decompress_liz.h); last_off resets per inner block
+        if token >= 32:
+            length = token & MAX_SHORT_LITLEN
+            if length == MAX_SHORT_LITLEN:
+                ext, lp = _ext(lit, lp, iend)
+                length += ext
+            if lp > iend - 16 or lp + length > iend:
+                raise _Corrupt(ERR_LITERALS)
+            op = put_literals(op, lp, length)
+            lp += length
+            if token >> ML_RUN_BITS == 0:         # new 16-bit offset
+                if p16 + 2 > len(o16):
+                    raise _Corrupt(ERR_OFF16)
+                last_off = o16[p16] | (o16[p16 + 1] << 8)
+                p16 += 2
+            length = (token >> RUN_BITS_LIZ) & MAX_SHORT_MATCHLEN
+            if length == MAX_SHORT_MATCHLEN:
+                ext, lp = _ext(lit, lp, iend)
+                length += ext
+        else:
+            if token < LIZARD_LAST_LONG_OFF:      # ML = token+16, off24
+                length = token + MM_LONGOFF
+            else:                                 # token 31: ext ML first
+                ext, lp = _ext(lit, lp, iend)
+                length = ext + LIZARD_LAST_LONG_OFF + MM_LONGOFF
+            if p24 > len(o24) - 3:
+                raise _Corrupt(ERR_OFF24)
+            last_off = o24[p24] | (o24[p24 + 1] << 8) | (o24[p24 + 2] << 16)
+            p24 += 3
+        if last_off == 0:
+            if length != 0:
+                raise _Corrupt(ERR_REP0)
+        elif op - last_off < 0:
+            raise _Corrupt(ERR_OFFSET)
+        op = put_match(op, last_off, length)
+    # last literals: whatever remains of the literals stream
+    return put_literals(op, lp, iend - lp)
+
+
+def decode_batch_lanes(batch: BlockBatch, device=None) -> list[bytes]:
+    """Decode a BlockBatch (fastLZ4 or LIZv1 codewords) on `device` (the
+    card unless device="cpu"). Returns the decoded bytes of every block,
+    in batch order. Raises CorruptError on a corrupt chain."""
+    dev = resolve_device(device)
+    args = stage_batch(batch, dev)
+    out, block_len, status = lz_decode(**args)
+    chains = args["chains"].cpu()
+    status = status.cpu()
+    bad = torch.nonzero(status != OK).flatten()
+    if bad.numel():
+        c = int(bad[0])
+        sid = int(batch.stream_id[int(chains[c, 0])])
+        raise CorruptError(f"stream {sid}: {STATUS_TEXT[int(status[c])]}")
+    lens = block_len.cpu().tolist()
+    data = out.cpu().numpy()
+    blocks = []
+    for first, count, base in chains.tolist():
+        pos = base
+        for b in range(first, first + count):
+            blocks.append(data[pos:pos + lens[b]].tobytes())
+            pos += lens[b]
+    return blocks
+
+
+def decompress_lanes(streams: list[bytes], device=None,
+                     entropy: str = "host") -> list[bytes]:
+    """Decode independent compressed streams (either codeword family, all
+    of one family) on `device`; returns the decoded bytes per stream.
+    Huffman-coded streams are entropy-decoded on the host (entropy="host")
+    before the LZ kernel runs."""
+    dev = resolve_device(device)
+    batch = split_streams(streams, entropy=entropy)
+    blocks = decode_batch_lanes(batch, device=dev)
+    parts = [[] for _ in streams]
+    for sid, data in zip(batch.stream_id.tolist(), blocks):
+        parts[sid].append(data)
+    return [b"".join(p) for p in parts]
