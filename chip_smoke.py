@@ -12,18 +12,26 @@ every result against the input bytes:
 2. build: every kernel source, one nvcc each, all started together;
 3. full-size decode: the 32 MB corpus of bench.py::build_corpus in 128 KB
    independent blocks, compressed at levels 10 and 21, decoded by
-   decompress_lanes on the card; kernel-only time (CUDA events, median),
-   end-to-end time, and the HBM floor;
-4. kernel against plain: lz_decode against lz_decode_plain on the card,
-   on the whole batch of each main level;
-5. level sweep: ~1 MB at levels 12, 19, 29, 35, 41;
-6. frames: a level-21 frame with 4 MB blocks (32 chained inner blocks,
-   off24 matches present) and a level-10 frame with 128 KB blocks;
-   each sweep level and frame is held against the plain version too, on
-   the kernel inputs that its own path gives;
-7. corruption: truncated and altered streams raise CorruptError;
-8. the kernels line (one JSON object per kernel);
-9. the last line: {"ok": true, "device": {...}}.
+   decompress_lanes on the card (lz_decode); kernel-only time (CUDA
+   events, median), end-to-end time, and the HBM floor;
+4. Huffman full-size decode: the same corpus at levels 35 and 41, decoded
+   by decompress_lanes with the default entropy route (huf_decode then
+   lz_decode, no host round trip between them); both kernels' times and
+   floors, the steps of the path, and the host-entropy route beside it;
+5. kernel against plain: lz_decode against lz_decode_plain on the card, on
+   the whole batch of levels 10 and 21, and at 35 and 41 huf_decode
+   against huf_decode_plain and lz_decode against lz_decode_plain on the
+   filled inputs;
+6. level sweep: ~1 MB at levels 12, 19, 29, 31, 35, 41, 45, 49;
+7. frames: a level-21 frame with 4 MB blocks (32 chained inner blocks,
+   off24 matches present), a level-41 frame with 4 MB blocks (32 chained
+   inner blocks with Huffman streams) and a level-10 frame with 128 KB
+   blocks; each sweep level and frame is held against the plain versions
+   too, on the kernel inputs that its own path gives;
+8. corruption: truncated and altered streams, and altered Huff0 blobs,
+   raise CorruptError;
+9. the kernels line (one JSON object per kernel);
+10. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -40,7 +48,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 BLOCK = 128 * 1024
 CORPUS_BYTES = 32 << 20
 MAIN_LEVELS = (10, 21)
-SWEEP_LEVELS = (12, 19, 29, 35, 41)
+HUF_LEVELS = (35, 41)
+SWEEP_LEVELS = (12, 19, 29, 31, 35, 41, 45, 49)
 KERNEL_REPS = 10
 PLAIN_TOLERANCE = 0            # decoded bytes, lengths, status: exact
 
@@ -115,6 +124,68 @@ def hold_against_plain(tld, args: dict, what: str) -> dict:
     return rec
 
 
+def huf_against_plain(th, batch, plan, what: str):
+    """huf_decode against huf_decode_plain on the card on one plan, each
+    writing into its own copy of the batch's staged (holed) streams: status
+    exactly (every segment OK), the filled streams within PLAIN_TOLERANCE.
+    Emits the comparison; returns it and the kernel's filled streams. The
+    plain version's time is host-clock, synchronised."""
+    import torch
+    from lizard_tpu_torch.ops.split import STREAMS
+    staged = plan.stage("cuda")
+    runs = []
+    for fn in (th.huf_decode, th.huf_decode_plain):
+        dests = {k: getattr(batch, k).to("cuda") for k in STREAMS}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        status = fn(**staged, **dests)
+        torch.cuda.synchronize()
+        runs.append((status, dests, (time.perf_counter() - t) * 1e3))
+    (ks, kd, _), (ps, pd, plain_ms) = runs
+    if not torch.equal(ks, ps):
+        raise AssertionError(f"{what}: huf status differs from the plain "
+                             "version")
+    if (ks != th.OK).any():
+        raise AssertionError(f"{what}: a Huff0 segment did not decode")
+    err = max((int((kd[k].int() - pd[k].int()).abs().max())
+               if kd[k].numel() else 0) for k in STREAMS)
+    if err > PLAIN_TOLERANCE:
+        raise AssertionError(f"{what}: huf bytes differ from the plain "
+                             "version")
+    rec = {"what": what, "blobs": int(plan.table_log.numel()),
+           "segments": int(plan.segs.shape[0]),
+           "bytes": int(plan.segs[:, 4].sum()), "max_abs_err": err,
+           "plain_ms": plain_ms}
+    emit("huf_vs_plain", **rec)
+    return rec, kd
+
+
+def both_against_plain(th, tld, streams, what: str) -> tuple:
+    """The kernels of the default route against their plain versions on
+    the inputs that route gives `streams`: huf_decode (if the batch has a
+    Huffman stream), then lz_decode on the kernel-filled streams. Returns
+    (huf record or None, lz record)."""
+    from lizard_tpu_torch.ops.fuse import build_fused_plan
+    batch, plan = build_fused_plan(streams)
+    args = tld.stage_batch(batch, "cuda")
+    huf = None
+    if plan.segs.shape[0]:
+        huf, filled = huf_against_plain(th, batch, plan, what)
+        args.update(filled)
+    return huf, hold_against_plain(tld, args, what)
+
+
+def huf_floor_bytes(plan) -> tuple[int, int]:
+    """(bytes read, bytes written) by huf_decode on a plan: the segment
+    bytes, the segment table, the decode table entries it uses (2 << tableLog
+    each) and the tableLogs in; the decoded bytes and statuses out."""
+    read = (plan.data.numel() + plan.segs.numel() * 8
+            + sum(2 << tl for tl in plan.table_log.tolist())
+            + plan.table_log.numel() * 4)
+    written = int(plan.segs[:, 4].sum()) + 4 * plan.segs.shape[0]
+    return read, written
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -127,10 +198,15 @@ def main() -> int:
     from lizard_tpu_torch.format.constants import LIZARDF_BLOCK_SIZES
     from lizard_tpu_torch.frame import compress_frame_fast
     from lizard_tpu_torch.ops import _build
+    from lizard_tpu_torch.ops import huf128 as th
     from lizard_tpu_torch.ops import lane_decode as tld
+    from lizard_tpu_torch.ops.fuse import build_fused_plan
+    from lizard_tpu_torch.ops.huf128 import huf_decode, prepare_huf128
     from lizard_tpu_torch.ops.lane_decode import (
         decode_batch_lanes, decompress_lanes, lz_decode, stage_batch)
-    from lizard_tpu_torch.ops.split import split_streams
+    from lizard_tpu_torch.ops.split import (
+        STREAMS, new_accumulator, split_into, split_streams)
+    from lizard_tpu_torch.ref.huf import huf_read_stats
     from lizard_tpu_torch.utils.datagen import build_corpus, gen
 
     # 1. device
@@ -220,47 +296,144 @@ def main() -> int:
     emit("decode_again", level=MAIN_LEVELS[0],
          e2e_ms=statistics.median(again), e2e_runs_ms=again)
 
-    # 4. kernel against plain, on the card: the whole batch of each main
-    # level. The sweep and the frames below are held against it too, each
-    # at its own shape, after its own run of the path.
+    # 4. Huffman full-size decode at levels 35 and 41: the default entropy
+    # route, huf_decode then lz_decode on the card
+    huf_launches = 0
+    huf_timing = {}
+    for level in HUF_LEVELS:
+        streams = [runtime.compress(c, level) for c in chunks]
+        comp = sum(map(len, streams))
+        huf_decode.launches = lz_decode.launches = 0
+        outs = decompress_lanes(streams)          # the card, entropy="gpu"
+        torch.cuda.synchronize()
+        launches = (huf_decode.launches, lz_decode.launches)
+        if b"".join(outs) != corpus:
+            raise AssertionError(f"level {level}: decode != corpus")
+        if min(launches) < 1:
+            raise AssertionError(f"level {level}: a kernel never launched "
+                                 f"(huf, lz launches {launches})")
+        huf_launches += launches[0]
+        main_launches += launches[1]
+        e2e_runs = e2e_ms(decompress_lanes, streams)
+        host_runs = e2e_ms(lambda s: decompress_lanes(s, entropy="host"),
+                           streams)
+        # the steps, each synchronised: split with the Huff0 plan (of which
+        # the plan alone: header parse and table build; and of that the
+        # weights headers alone), H2D, huf kernel, LZ kernel, D2H of the
+        # output buffer
+        steps = {}
+        t = time.perf_counter()
+        batch, plan = build_fused_plan(streams)
+        steps["split_and_plan_ms"] = (time.perf_counter() - t) * 1e3
+        blobs = []
+        split_into(streams, new_accumulator(),
+                   lambda b, n, k: blobs.append((b, n)) or bytes(n))
+        t = time.perf_counter()
+        prepare_huf128(blobs)
+        steps["of_which_plan_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        for blob, n in blobs:               # the weights headers alone
+            if 1 < len(blob) < n:
+                huf_read_stats(blob)
+        steps["of_which_headers_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        args = stage_batch(batch, "cuda")
+        hargs = {**plan.stage("cuda"), **{k: args[k] for k in STREAMS}}
+        torch.cuda.synchronize()
+        steps["h2d_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        status = huf_decode(**hargs)
+        torch.cuda.synchronize()
+        steps["huf_kernel_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out, block_len, _ = lz_decode(**args)
+        torch.cuda.synchronize()
+        steps["lz_kernel_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out.cpu(), block_len.cpu(), status.cpu()
+        steps["d2h_ms"] = (time.perf_counter() - t) * 1e3
+        huf_ms = cuda_ms(lambda: huf_decode(**hargs), KERNEL_REPS)
+        lz_ms = cuda_ms(lambda: lz_decode(**args), KERNEL_REPS)
+        hread, hwritten = huf_floor_bytes(plan)
+        huf_bound = (hread + hwritten) / HBM_BYTES_PER_S * 1e3
+        lz_read = staged_bytes(args)
+        lz_bound = (lz_read + len(corpus) + 4 * args["blocks"].shape[0]
+                    + 4 * args["chains"].shape[0]) / HBM_BYTES_PER_S * 1e3
+        huf_timing[level] = {"ms": huf_ms, "bound_ms": huf_bound}
+        timing[level] = {"ms": lz_ms, "bound_ms": lz_bound}
+        staged[level] = (streams, args)
+        emit("huffman_decode", level=level, streams=len(streams),
+             compressed_bytes=comp, decoded_bytes=len(corpus),
+             huf_blobs=int(plan.table_log.numel()),
+             huf_segments=int(plan.segs.shape[0]),
+             huf_decoded_bytes=hwritten - 4 * plan.segs.shape[0],
+             huf_blob_bytes=plan.data.numel(),
+             longest_segment=int(plan.segs[:, 4].max()),
+             table_logs=sorted(set(plan.table_log.tolist())),
+             huf_launches=launches[0], lz_launches=launches[1],
+             huf_kernel_ms=huf_ms, lz_kernel_ms=lz_ms,
+             huf_hbm_floor_ms=huf_bound, lz_hbm_floor_ms=lz_bound,
+             e2e_ms=statistics.median(e2e_runs), e2e_runs_ms=e2e_runs,
+             e2e_gbps=len(corpus) / statistics.median(e2e_runs) / 1e6,
+             host_entropy_e2e_ms=statistics.median(host_runs),
+             host_entropy_e2e_runs_ms=host_runs, steps=steps, card=smi)
+
+    # 5. kernel against plain, on the card: the whole batch of each main
+    # level; at the Huffman levels both kernels, on the route's own inputs.
+    # The sweep and the frames below are held against them too, each at its
+    # own shape, after its own run of the path.
     plain_ms = {}
-    max_err = 0
+    huf_plain_ms = {}
+    max_err = huf_err = 0
     for level in MAIN_LEVELS:
         rec = hold_against_plain(tld, staged[level][1],
                                  f"level {level}, {len(chunks)} x 128 KB")
         plain_ms[level] = rec["plain_ms"]
         max_err = max(max_err, rec["max_abs_err"])
+    for level in HUF_LEVELS:
+        huf, rec = both_against_plain(
+            th, tld, staged[level][0], f"level {level}, {len(chunks)} x 128 KB")
+        plain_ms[level] = rec["plain_ms"]
+        huf_plain_ms[level] = huf["plain_ms"]
+        max_err = max(max_err, rec["max_abs_err"])
+        huf_err = max(huf_err, huf["max_abs_err"])
 
-    # 5. level sweep, ~1 MB each
+    # 6. level sweep, ~1 MB each, default entropy route
     sweep = corpus[:8 * BLOCK]
     for level in SWEEP_LEVELS:
         streams = [runtime.compress(sweep[i:i + BLOCK], level)
                    for i in range(0, len(sweep), BLOCK)]
-        lz_decode.launches = 0
+        huf_decode.launches = lz_decode.launches = 0
         outs = decompress_lanes(streams)
         torch.cuda.synchronize()
-        launches = lz_decode.launches
-        if b"".join(outs) != sweep or launches < 1:
-            raise AssertionError(f"sweep level {level} failed")
-        rec = hold_against_plain(
-            tld, stage_batch(split_streams(streams), "cuda"),
-            f"sweep level {level}")
+        launches = (huf_decode.launches, lz_decode.launches)
+        if (b"".join(outs) != sweep or launches[1] < 1
+                or (level >= 30) != (launches[0] >= 1)):
+            raise AssertionError(f"sweep level {level} failed "
+                                 f"(huf, lz launches {launches})")
+        huf, rec = both_against_plain(th, tld, streams,
+                                      f"sweep level {level}")
         max_err = max(max_err, rec["max_abs_err"])
-        emit("sweep", level=level, bytes=len(sweep), launches=launches,
-             entropy="host (native Huff0)" if level >= 30 else "none")
+        huf_err = max(huf_err, huf["max_abs_err"] if huf else 0)
+        emit("sweep", level=level, bytes=len(sweep), launches=launches[1],
+             huf_launches=launches[0],
+             route=("gpu: huf_decode then lz_decode" if level >= 30
+                    else "gpu: lz_decode (no Huffman stage)"))
 
-    # 6. frames
+    # 7. frames
     a = gen(1_500_000, seed=1, proba=0.5)
     far = (a + gen(1_200_000, seed=2, proba=0.5) + a)[:4 << 20]
-    for level, bsid, data in ((21, 4, far), (10, 1, corpus[:2 << 20])):
+    for level, bsid, data in ((21, 4, far), (41, 4, far),
+                              (10, 1, corpus[:2 << 20])):
         frame = compress_frame_fast(data, level, block_size_id=bsid)
-        lz_decode.launches = 0
+        huf_decode.launches = lz_decode.launches = 0
         got = ltt.decompress_frame(frame)
         torch.cuda.synchronize()
-        launches = lz_decode.launches
-        if got != data or launches < 1:
+        launches = (huf_decode.launches, lz_decode.launches)
+        if (got != data or launches[1] < 1
+                or (level >= 30) != (launches[0] >= 1)):
             raise AssertionError(f"frame level {level} bsid {bsid} failed")
-        # the kernel's inputs on this path: the frame's compressed blocks,
+        # the kernels' inputs on this path: the frame's compressed blocks,
         # made as compress_frame_fast makes them (stored blocks are copied)
         size = LIZARDF_BLOCK_SIZES[bsid]
         parts = [data[i:i + size] for i in range(0, len(data), size)]
@@ -268,26 +441,32 @@ def main() -> int:
                    ((runtime.compress(part, level), part) for part in parts)
                    if len(s) < len(part)]
         batch = split_streams(streams)
-        if level == 21 and batch.off24.numel() == 0:
-            raise AssertionError("the 4 MB level-21 block has no off24 "
-                                 "matches")
-        rec = hold_against_plain(tld, stage_batch(batch, "cuda"),
-                                 f"frame level {level} bsid {bsid}")
+        if bsid == 4 and batch.off24.numel() == 0:
+            raise AssertionError(f"the 4 MB level-{level} block has no "
+                                 "off24 matches")
+        huf, rec = both_against_plain(th, tld, streams,
+                                      f"frame level {level} bsid {bsid}")
         max_err = max(max_err, rec["max_abs_err"])
+        huf_err = max(huf_err, huf["max_abs_err"] if huf else 0)
         emit("frame", level=level, block_size_id=bsid, bytes=len(data),
-             frame_bytes=len(frame), launches=launches,
-             inner_blocks=rec["inner_blocks"],
+             frame_bytes=len(frame), launches=launches[1],
+             huf_launches=launches[0], inner_blocks=rec["inner_blocks"],
+             huf_segments=huf["segments"] if huf else 0,
              off24_bytes=int(batch.off24.numel()))
 
-    # 7. corruption: each case must raise CorruptError
+    # 8. corruption: each case must raise CorruptError
     raised = corruption_cases(staged, runtime, decompress_lanes, CorruptError)
     if ltt.decompress(staged[10][0][0]) != corpus[:BLOCK]:
         raise AssertionError("a valid decode failed after the corrupt ones")
+    if ltt.decompress(staged[41][0][0]) != corpus[:BLOCK]:
+        raise AssertionError("a valid Huffman decode failed after the "
+                             "corrupt ones")
     torch.cuda.synchronize()
     emit("corruption", raised=raised)
 
-    # 8. kernels line
+    # 9. kernels line
     t10 = timing[MAIN_LEVELS[0]]
+    h41 = huf_timing[HUF_LEVELS[-1]]
     print(json.dumps({"kernels": [{
         "name": "lz_decode",
         "route": "cuda",
@@ -303,23 +482,70 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "shape": f"level {MAIN_LEVELS[0]}, {len(chunks)} chains x 128 KB",
-        "ms_by_level": {str(lv): timing[lv]["ms"] for lv in MAIN_LEVELS},
-        "plain_ms_by_level": {str(lv): plain_ms[lv] for lv in MAIN_LEVELS},
+        "ms_by_level": {str(lv): timing[lv]["ms"] for lv in timing},
+        "plain_ms_by_level": {str(lv): plain_ms[lv] for lv in plain_ms},
         "bound_ms_by_level": {str(lv): timing[lv]["bound_ms"]
-                              for lv in MAIN_LEVELS},
+                              for lv in timing},
+    }, {
+        "name": "huf_decode",
+        "route": "cuda",
+        "source": "lizard_tpu_torch/csrc/huf_decode.cu",
+        "replaces": "lizard_tpu/ops/huf128.py:83::_huf128_kernel + "
+                    "lizard_tpu/ops/huf128.py:407::_translate_kernel + "
+                    "lizard_tpu/ops/fuse.py:58::_compact_kernel",
+        "launches": huf_launches,
+        "max_abs_err": huf_err,
+        "tolerance": PLAIN_TOLERANCE,
+        "matches_plain": huf_err <= PLAIN_TOLERANCE,
+        "ms": h41["ms"],
+        "plain_ms": huf_plain_ms[HUF_LEVELS[-1]],
+        "bound_ms": h41["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"level {HUF_LEVELS[-1]}, the Huff0 blobs of "
+                 f"{len(chunks)} x 128 KB streams",
+        "ms_by_level": {str(lv): huf_timing[lv]["ms"] for lv in HUF_LEVELS},
+        "plain_ms_by_level": {str(lv): huf_plain_ms[lv] for lv in HUF_LEVELS},
+        "bound_ms_by_level": {str(lv): huf_timing[lv]["bound_ms"]
+                              for lv in HUF_LEVELS},
     }]}), flush=True)
 
-    # 9. last line
+    # 10. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
 
 
 def corruption_cases(staged, runtime, decompress_lanes, CorruptError) -> dict:
-    """Truncations (caught by the host split) and altered token streams and
-    oversized blocks (caught by the kernel's status)."""
+    """Truncations (caught by the host split), altered token streams and
+    oversized blocks (caught by lz_decode's status), and altered Huff0 blobs
+    in a level-41 stream: a segment cut by one byte with its jump table
+    fixed (caught by huf_decode's status), a zeroed end mark and a jump
+    table that overruns the blob (caught by the host plan)."""
+    from lizard_tpu_torch.ref.huf import huf_read_stats
     lz4 = staged[10][0][0]
     liz = staged[21][0][0]
+    huf = staged[41][0][0]
+
+    def jump(blob):
+        h = huf_read_stats(blob)[2]
+        return h, int.from_bytes(blob[h:h + 2], "little")
+
+    def cut_segment0(blob):
+        h, l1 = jump(blob)
+        b = bytearray(blob)
+        b[h:h + 2] = (l1 - 1).to_bytes(2, "little")
+        del b[h + 6]                        # the lowest byte of segment 0
+        return bytes(b)
+
+    def zero_end_mark(blob):
+        h, l1 = jump(blob)
+        return blob[:h + 6 + l1 - 1] + b"\0" + blob[h + 6 + l1:]
+
+    def overrun(blob):
+        h, _ = jump(blob)
+        return blob[:h] + b"\xff\xff" + blob[h + 2:]
+
     cases = {
         "truncated_half": lz4[:len(lz4) // 2],
         "truncated_tail": lz4[:-1],
@@ -330,6 +556,9 @@ def corruption_cases(staged, runtime, decompress_lanes, CorruptError) -> dict:
         "liz_rep_without_offset": _set_first_token(liz, 0x88),
         "oversized_stored_block": bytes([10, 0x80]) + (200_000).to_bytes(3, "little")
         + bytes(200_000),
+        "huf_segment_cut_one_byte": _edit_first_huf_blob(huf, cut_segment0),
+        "huf_end_mark_zeroed": _edit_first_huf_blob(huf, zero_end_mark),
+        "huf_jump_table_overrun": _edit_first_huf_blob(huf, overrun),
     }
     raised = {}
     for name, s in cases.items():
@@ -339,7 +568,30 @@ def corruption_cases(staged, runtime, decompress_lanes, CorruptError) -> dict:
             raised[name] = str(e)
             continue
         raise AssertionError(f"corruption case {name} did not raise")
+    if "not exactly consumed" not in raised["huf_segment_cut_one_byte"]:
+        raise AssertionError("the cut segment was not caught by huf_decode's "
+                             "status")
     return raised
+
+
+def _edit_first_huf_blob(stream: bytes, edit) -> bytes:
+    """`stream` with the first Huff0 blob of its first inner block replaced
+    by edit(blob), and the blob's size field fixed. Streams of a block: len,
+    off16, off24, flags, literals; a raw one is a LE24 length and its
+    bytes, a Huffman one a LE24 decoded size, a LE24 blob size and the
+    blob. The header byte's bits 0-3 flag literals, flags, off16, off24."""
+    header = stream[1]
+    if header & 0x80:
+        raise ValueError("first block is stored")
+    p = 2
+    for bit in (0, 4, 8, 2, 1):             # len, off16, off24, flags, lits
+        if header & bit:
+            size = int.from_bytes(stream[p + 3:p + 6], "little")
+            blob = edit(stream[p + 6:p + 6 + size])
+            return (stream[:p + 3] + len(blob).to_bytes(3, "little") + blob
+                    + stream[p + 6 + size:])
+        p += 3 + int.from_bytes(stream[p:p + 3], "little")
+    raise ValueError("first block has no Huffman-coded stream")
 
 
 def _set_first_token(stream: bytes, token: int) -> bytes:

@@ -7,12 +7,20 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``format``             -- formats as pure data (constants, level table)
 - ``errors``             -- CorruptError, HufError
 - ``runtime``            -- ctypes binding over the shared native runtime
+- ``device``             -- the device rule (resolve_device)
+- ``ref.huf``            -- Huff0 weights header and decode tables (host)
 - ``ops.split``          -- host split of streams into a flat block batch
+- ``ops.huf128``         -- Huff0 decode: the CUDA kernel csrc/huf_decode.cu,
+                            its host plan, wrapper and plain PyTorch version
 - ``ops.lane_decode``    -- LZ decode: the CUDA kernel csrc/lz_decode.cu,
                             its wrapper and its plain PyTorch version
+- ``ops.fuse``           -- Huff0 then LZ decode on the device, no host
+                            round trip between them (levels 30-49)
 - ``frame`` / ``api``    -- frame container and one-shot entry points
 
 Every entry point runs on the card unless the caller passes device="cpu".
+Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
+default); entropy="host" decodes the Huffman stage with the native Huff0.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ lib/lizard_frame.c).
 Container: magic, descriptor (FLG/BD/contentSize/HC), LE32-size-prefixed
 blocks (high bit = stored), endmark, optional xxh32 content checksum.
 `decompress_frame_lanes` decodes every block of a blockIndependent frame as
-one chain of the CUDA LZ kernel (ops/lane_decode.py).
+one chain of the CUDA LZ kernel (ops/lane_decode.py), after the Huff0
+kernel at levels 30-49 (ops/fuse.py).
 """
 
 from lizard_tpu_torch import runtime
@@ -17,7 +18,8 @@ from lizard_tpu_torch.format.constants import (
     LIZARDF_MAGIC_SKIPPABLE_START,
 )
 from lizard_tpu_torch.format.levels import LEVELS, validate_level
-from lizard_tpu_torch.ops.lane_decode import decompress_lanes, resolve_device
+from lizard_tpu_torch.device import resolve_device
+from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 from lizard_tpu_torch.runtime import xxh32
 
 
@@ -158,11 +160,14 @@ def compress_frame_fast(data: bytes, level: int = 11,
 
 
 def decompress_frame_lanes(src: bytes, device=None,
-                           entropy: str = "host") -> bytes:
+                           entropy: str = "gpu") -> bytes:
     """Decode one blockIndependent frame on `device` (the card unless
     device="cpu"). Every compressed frame block is a stream of chained inner
     blocks, decoded as one chain of the LZ kernel; stored blocks are copied.
-    Levels 30-49 take the host entropy route (entropy="host"). Raises
+    At levels 30-49 the Huff0 kernel first decodes the Huffman-coded
+    streams into the LZ kernel's inputs on the device (entropy="gpu", the
+    default); entropy="host" decodes them on the host with the native
+    Huff0 instead (ops/lane_decode.py::decompress_lanes). Raises
     FrameError for a linked frame and for any malformed frame or block."""
     dev = resolve_device(device)
     info = parse_frame_header(src)

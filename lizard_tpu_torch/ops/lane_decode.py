@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import (
     LIZARD_BLOCK_SIZE,
@@ -56,17 +57,6 @@ STATUS_TEXT = {
     ERR_REP0: "rep match with last_off==0",
     ERR_CAPACITY: "block output exceeds LIZARD_BLOCK_SIZE",
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card unless the caller asks for the CPU:
-    device=None means "cuda", and raises when there is no CUDA device."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device; pass device='cpu' to decode on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def chain_table(stream_id: torch.Tensor) -> torch.Tensor:
@@ -334,13 +324,11 @@ def _decode_block(host, row, family, literals, out, base, op, bend):
     return put_literals(op, lp, iend - lp)
 
 
-def decode_batch_lanes(batch: BlockBatch, device=None) -> list[bytes]:
-    """Decode a BlockBatch (fastLZ4 or LIZv1 codewords) on `device` (the
-    card unless device="cpu"). Returns the decoded bytes of every block,
-    in batch order. Raises CorruptError on a corrupt chain."""
-    dev = resolve_device(device)
-    args = stage_batch(batch, dev)
-    out, block_len, status = lz_decode(**args)
+def read_blocks(batch: BlockBatch, args: dict, out, block_len,
+                status) -> list[bytes]:
+    """The decoded bytes of every block of an lz_decode result (one copy
+    back to the host), in batch order. Raises CorruptError on a corrupt
+    chain. `args` is the staged batch the result came from."""
     chains = args["chains"].cpu()
     status = status.cpu()
     bad = torch.nonzero(status != OK).flatten()
@@ -359,16 +347,40 @@ def decode_batch_lanes(batch: BlockBatch, device=None) -> list[bytes]:
     return blocks
 
 
-def decompress_lanes(streams: list[bytes], device=None,
-                     entropy: str = "host") -> list[bytes]:
-    """Decode independent compressed streams (either codeword family, all
-    of one family) on `device`; returns the decoded bytes per stream.
-    Huffman-coded streams are entropy-decoded on the host (entropy="host")
-    before the LZ kernel runs."""
-    dev = resolve_device(device)
-    batch = split_streams(streams, entropy=entropy)
-    blocks = decode_batch_lanes(batch, device=dev)
-    parts = [[] for _ in streams]
+def decode_batch_lanes(batch: BlockBatch, device=None) -> list[bytes]:
+    """Decode a BlockBatch (fastLZ4 or LIZv1 codewords) on `device` (the
+    card unless device="cpu"). Returns the decoded bytes of every block,
+    in batch order. Raises CorruptError on a corrupt chain."""
+    args = stage_batch(batch, resolve_device(device))
+    return read_blocks(batch, args, *lz_decode(**args))
+
+
+def join_streams(batch: BlockBatch, blocks: list[bytes],
+                 n_streams: int) -> list[bytes]:
+    """The decoded bytes of each of n_streams streams, from its blocks."""
+    parts = [[] for _ in range(n_streams)]
     for sid, data in zip(batch.stream_id.tolist(), blocks):
         parts[sid].append(data)
     return [b"".join(p) for p in parts]
+
+
+def decompress_lanes(streams: list[bytes], device=None,
+                     entropy: str = "gpu") -> list[bytes]:
+    """Decode independent compressed streams (either codeword family, all
+    of one family) on `device`; returns the decoded bytes per stream.
+
+    entropy="gpu" (the default) decodes the Huffman-coded streams of
+    levels 30-49 with the Huff0 kernel straight into the LZ kernel's
+    inputs (ops/fuse.py::decompress_lanes_fused); entropy="host" decodes
+    them in the host split with the native Huff0 first. A batch with no
+    Huffman stream takes the same path either way."""
+    dev = resolve_device(device)
+    if entropy == "gpu":
+        # ops.fuse builds on this module, so it is imported here
+        from lizard_tpu_torch.ops.fuse import decompress_lanes_fused
+        return decompress_lanes_fused(streams, device=dev)
+    if entropy != "host":
+        raise ValueError(f"unknown entropy route {entropy!r}")
+    batch = split_streams(streams, entropy="host")
+    return join_streams(batch, decode_batch_lanes(batch, device=dev),
+                        len(streams))

@@ -4,8 +4,10 @@ block batch for the CUDA decode kernel (the port of lizard_tpu/ops/split.py).
 The block format (1 level byte + per-block 5 separated streams,
 lib/lizard_decompress.c:115-264) is parsed on the host; stream payloads are
 concatenated into flat uint8 tensors with per-block int64 offsets and
-lengths. Huffman-coded streams (levels 30-49) are entropy-decoded during the
-split by the native Huff0 (entropy="host").
+lengths. Huffman-coded streams (levels 30-49) are either entropy-decoded
+during the split by the native Huff0 (entropy="host"), or left as holes of
+zero bytes that the Huff0 kernel fills (entropy="gpu"; ops/huf128.py, and
+ops/fuse.py for the fused path, where the holes are filled on the card).
 
 Everything in a `BlockBatch` lies on the CPU; the decoder moves it to the
 device once (ops/lane_decode.py::stage_batch).
@@ -29,6 +31,7 @@ from lizard_tpu_torch.format.constants import (
     LIZARD_MIN_CLEVEL,
 )
 from lizard_tpu_torch.format.levels import LEVELS, Codewords
+from lizard_tpu_torch.ops.huf128 import huf_decompress_128
 
 STREAMS = ("flags", "literals", "off16", "off24")
 # per-block (offset, length) field names, in the column order of
@@ -80,7 +83,10 @@ def _le24(b, i):
     return int(b[i]) | (int(b[i + 1]) << 8) | (int(b[i + 2]) << 16)
 
 
-def _read_stream(src, ip, flag):
+def _read_stream(src, ip, flag, hd=None, kind=None):
+    """One stream at ip: (its bytes, the next ip). A Huffman-coded stream
+    goes to hd(blob, orig, kind) when hd is given, and its result stands
+    for the stream; else the native Huff0 decodes it."""
     if not flag:
         if ip > len(src) - 3:
             raise CorruptError("stream header truncated")
@@ -95,13 +101,19 @@ def _read_stream(src, ip, flag):
     comp = _le24(src, ip + 3)
     if ip + 6 + comp > len(src):
         raise CorruptError("huf stream truncated")
-    data = runtime.huf_decompress(bytes(src[ip + 6:ip + 6 + comp]), orig)
+    blob = bytes(src[ip + 6:ip + 6 + comp])
+    if hd is not None:
+        return hd(blob, orig, kind), ip + 6 + comp
+    data = runtime.huf_decompress(blob, orig)
     return np.frombuffer(data, dtype=np.uint8), ip + 6 + comp
 
 
-def split_stream(src: bytes, batch: dict, stream_id: int) -> Codewords:
+def split_stream(src: bytes, batch: dict, stream_id: int,
+                 hd=None) -> Codewords:
     """Split one compressed stream (level byte + inner blocks) into `batch`
-    accumulator lists. Returns the codeword family."""
+    accumulator lists. Returns the codeword family. `hd(blob, orig, kind)`,
+    when given, stands in for every Huffman-coded stream (see
+    _read_stream); kind is its name in STREAMS."""
     src = np.frombuffer(src, dtype=np.uint8)
     if len(src) < 1:
         raise CorruptError("empty stream")
@@ -134,10 +146,11 @@ def split_stream(src: bytes, batch: dict, stream_id: int) -> Codewords:
         if header & ~(FLAG_LITERALS | FLAG_FLAGS | FLAG_OFFSET16 | FLAG_OFFSET24):
             raise CorruptError(f"bad header byte {header}")
         _, ip = _read_stream(src, ip, 0)          # "len" stream: unused
-        o16, ip = _read_stream(src, ip, header & FLAG_OFFSET16)
-        o24, ip = _read_stream(src, ip, header & FLAG_OFFSET24)
-        flags, ip = _read_stream(src, ip, header & FLAG_FLAGS)
-        lits, ip = _read_stream(src, ip, header & FLAG_LITERALS)
+        o16, ip = _read_stream(src, ip, header & FLAG_OFFSET16, hd, "off16")
+        o24, ip = _read_stream(src, ip, header & FLAG_OFFSET24, hd, "off24")
+        flags, ip = _read_stream(src, ip, header & FLAG_FLAGS, hd, "flags")
+        lits, ip = _read_stream(src, ip, header & FLAG_LITERALS, hd,
+                                "literals")
         _append(batch, stream_id, flags=flags, literals=lits, off16=o16, off24=o24)
     return family
 
@@ -176,27 +189,47 @@ def finalize(batch: dict, codewords: Codewords) -> BlockBatch:
     )
 
 
-def split_streams(streams: list[bytes], entropy: str = "host") -> BlockBatch:
-    """Split multiple independent compressed streams into one batch.
-
-    entropy="host" decodes Huffman-coded streams inline with the native
-    Huff0. entropy="gpu" (the Huff0 kernels on the card) is slice 2 of the
-    port and not there yet."""
-    if entropy == "gpu":
-        raise NotImplementedError(
-            "entropy='gpu' waits for slice 2 of the port (the Huff0 "
-            "kernels B2-B4); use entropy='host'")
-    if entropy != "host":
-        raise ValueError(f"unknown entropy route {entropy!r}")
-    acc = new_accumulator()
+def split_into(streams: list[bytes], acc: dict, hd=None) -> Codewords:
+    """Split every stream into the accumulator `acc` (stream i gets id i);
+    returns the batch's codeword family."""
     family = None
     for i, s in enumerate(streams):
-        f = split_stream(s, acc, i)
+        f = split_stream(s, acc, i, hd)
         if family is None:
             family = f
         elif family != f:
             raise CorruptError("mixed codeword families in one batch")
-    return finalize(acc, family or Codewords.LZ4)
+    return family or Codewords.LZ4
+
+
+def split_streams(streams: list[bytes], entropy: str = "host",
+                  device=None) -> BlockBatch:
+    """Split multiple independent compressed streams into one batch.
+
+    entropy="host" decodes Huffman-coded streams inline with the native
+    Huff0. entropy="gpu" leaves each as a hole and then decodes every
+    blob of the batch in one huf_decompress_128 call on `device` (the card
+    unless device="cpu"), and fills the holes; the batch is on the CPU
+    either way. (The main path, ops/fuse.py, fills the holes on the card
+    instead and never brings the entropy bytes back.)"""
+    if entropy not in ("host", "gpu"):
+        raise ValueError(f"unknown entropy route {entropy!r}")
+    acc = new_accumulator()
+    if entropy == "host":
+        return finalize(acc, split_into(streams, acc))
+    pend = []
+
+    def hole(blob, orig, kind):
+        buf = np.zeros(orig, np.uint8)
+        pend.append((blob, orig, buf))
+        return buf
+    family = split_into(streams, acc, hole)
+    if pend:
+        outs = huf_decompress_128([(blob, orig) for blob, orig, _ in pend],
+                                  device=device)
+        for (_, _, buf), out in zip(pend, outs):
+            buf[:] = np.frombuffer(out, np.uint8)
+    return finalize(acc, family)
 
 
 def from_reference_batch(fields: dict[str, np.ndarray], codewords) -> BlockBatch:

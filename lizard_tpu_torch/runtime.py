@@ -4,34 +4,57 @@
 The port uses four of its entry points: the native encoder (`compress`, all
 levels 10-49), the scalar block decoder (`decompress`, a cross-check), the
 Huff0 stream decoder (`huf_decompress`, the host entropy route of levels
-30-49) and `xxh32` (frame checksums). The library is built with
-tools/build_native.sh when the file is missing. There is no pure-Python
-fallback: without the library every call raises RuntimeError.
+30-49) and `xxh32` (frame checksums). When the file is missing or does not
+load, it is built with the command of tools/build_native.sh, into a
+temporary file that then replaces the library, both under an exclusive lock
+on native/build/.lock: several processes may start at once (test workers),
+and none loads a half-written library. There is no pure-Python fallback:
+without the library every call raises RuntimeError.
 """
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
 from lizard_tpu_torch.errors import CorruptError, HufError
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-_SO = os.path.join(_ROOT, "native", "build", "liblizard_tpu_runtime.so")
-_BUILD = os.path.join(_ROOT, "tools", "build_native.sh")
+_BUILD_DIR = os.path.join(_ROOT, "native", "build")
+_SO = os.path.join(_BUILD_DIR, "liblizard_tpu_runtime.so")
+_SRC = os.path.join(_ROOT, "native", "lizard_runtime.cpp")
 _lib = None
+
+
+def _build_and_open() -> ctypes.CDLL:
+    """Open the library, building it first if it is missing or does not
+    load; the build writes a temporary file and renames it onto _SO, all
+    under the directory's lock."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_SO):
+            try:
+                return ctypes.CDLL(_SO)
+            except OSError:
+                pass            # a partial file: build it anew
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-Wall",
+               "-o", tmp, _SRC]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"building the native runtime failed ({' '.join(cmd)}):\n"
+                f"{r.stdout}{r.stderr}")
+        os.replace(tmp, _SO)
+        return ctypes.CDLL(_SO)
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO):
-        r = subprocess.run(["sh", _BUILD], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"building the native runtime failed (sh {_BUILD}):\n"
-                f"{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(_SO)
+    lib = _build_and_open()
     lib.ltpu_xxh32.restype = ctypes.c_uint32
     lib.ltpu_xxh32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                ctypes.c_uint32]

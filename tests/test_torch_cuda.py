@@ -1,5 +1,6 @@
-"""The CUDA kernel csrc/lz_decode.cu against its plain PyTorch version, on
-the card. Every test here needs an NVIDIA GPU and skips without one.
+"""The CUDA kernels csrc/lz_decode.cu and csrc/huf_decode.cu against their
+plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
+skips without one.
 
 This file imports neither JAX nor lizard_tpu, so it also runs where JAX is
 not installed; tests/conftest.py imports JAX, so run it there with
@@ -11,9 +12,12 @@ import pytest
 import torch
 
 from lizard_tpu_torch import runtime
-from lizard_tpu_torch.errors import CorruptError
+from lizard_tpu_torch.errors import CorruptError, HufError
+from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
-from lizard_tpu_torch.ops.split import split_streams
+from lizard_tpu_torch.ops.fuse import build_fused_plan
+from lizard_tpu_torch.ops.split import STREAMS, split_streams
+from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
 
 pytestmark = pytest.mark.cuda
@@ -81,3 +85,96 @@ def test_corrupt_status_matches_plain(level, card):
         + bytes(200_000)
     with pytest.raises(CorruptError, match="LIZARD_BLOCK_SIZE"):
         tld.decompress_lanes([oversized])
+
+
+def _huf_kernel_and_plain(batch, plan, card):
+    """huf_decode and huf_decode_plain on one staged plan, each into its
+    own copy of the staged streams: (kernel status, streams), (plain...)."""
+    staged = plan.stage(card)
+    runs = []
+    for fn in (th.huf_decode, th.huf_decode_plain):
+        dests = {k: getattr(batch, k).to(card) for k in STREAMS}
+        before = th.huf_decode.launches
+        status = fn(**staged, **dests)
+        torch.cuda.synchronize()
+        assert th.huf_decode.launches == before + (fn is th.huf_decode)
+        runs.append((status, dests))
+    return runs
+
+
+@pytest.mark.parametrize("level", [31, 35, 41, 45, 49])
+def test_huf_kernel_matches_plain(level, card):
+    datas = [gen(131072, seed=level, proba=0.6), text_like(131072, seed=2),
+             text_like(300_000, seed=3)]
+    streams = [runtime.compress(d, level) for d in datas]
+    batch, plan = build_fused_plan(streams)
+    assert plan.segs.shape[0] >= 4 * len(datas)      # Huffman blobs present
+    (ks, kd), (ps, pd) = _huf_kernel_and_plain(batch, plan, card)
+    assert torch.equal(ks, ps) and (ks == th.OK).all()
+    host = split_streams(streams, entropy="host")
+    for k in STREAMS:
+        assert torch.equal(kd[k], pd[k]), k
+        assert torch.equal(kd[k].cpu(), getattr(host, k)), k
+    before = (th.huf_decode.launches, tld.lz_decode.launches)
+    assert tld.decompress_lanes(streams) == datas
+    assert (th.huf_decode.launches, tld.lz_decode.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _tablelog12_blob(data: bytes) -> bytes:
+    """A Huff0 blob of tableLog 12 (the encoder here stops at 11): a raw
+    nibble header with weights 11, 10, ..., 1, 1 for symbols 0..11 (the
+    implied weight of symbol 12 is 12), and four backward bitstreams."""
+    weights = list(range(11, 0, -1)) + [1]
+    header = bytes([127 + len(weights)]) + bytes(
+        (weights[i] << 4) | (weights[i + 1] if i + 1 < len(weights) else 0)
+        for i in range(0, len(weights), 2))
+    table = th.decode_table(weights + [12], 12)
+    code = {}
+    for v, e in enumerate(table.tolist()):
+        code.setdefault(e & 0xFF, (v >> (12 - (e >> 8)), e >> 8))
+    seg = (len(data) + 3) // 4
+    parts = []
+    for k in range(4):
+        acc = nbits = 0
+        for sym in reversed(data[k * seg:(k + 1) * seg]):
+            c, n = code[sym]
+            acc |= c << nbits
+            nbits += n
+        acc |= 1 << nbits                           # end mark
+        parts.append(acc.to_bytes(nbits // 8 + 1, "little"))
+    jump = b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
+    return header + jump + b"".join(parts)
+
+
+def test_huf_kernel_tablelog_12_and_corrupt_status(card):
+    """A tableLog-12 blob decodes on the card as in the plain version; a
+    segment cut by one byte (its jump table fixed) is not consumed exactly
+    and both give it the same status."""
+    rng = torch.Generator().manual_seed(5)
+    data = bytes((12 - torch.multinomial(
+        torch.tensor([2.0 ** -k for k in range(13)]), 40_000, True,
+        generator=rng)).tolist())
+    blob = _tablelog12_blob(data)
+    assert th.prepare_huf128([(blob, len(data))]).table_log.tolist() == [12]
+    cut = bytearray(blob)
+    head = huf_read_stats(blob)[2]                  # the jump table's start
+    l1 = int.from_bytes(cut[head:head + 2], "little")
+    cut[head:head + 2] = (l1 - 1).to_bytes(2, "little")
+    del cut[head + 6]                   # the first (lowest) byte of segment 0
+    blobs = [(blob, len(data)), (bytes(cut), len(data))]
+    plan = th.prepare_huf128(blobs)
+    out = []
+    for dev in (card, "cpu"):
+        flat = torch.zeros(2 * len(data), dtype=torch.uint8, device=dev)
+        e = torch.empty(0, dtype=torch.uint8, device=dev)
+        status = th.huf_decode(**plan.stage(dev), flags=flat, literals=e,
+                               off16=e, off24=e)
+        out.append((status.cpu(), flat[:len(data)].cpu()))
+    (ks, kb), (ps, pb) = out
+    assert torch.equal(ks, ps)
+    assert ks[:4].tolist() == [0] * 4 and ks[4] == th.ERR_NOT_CONSUMED
+    assert bytes(kb.numpy()) == bytes(pb.numpy()) == data
+    assert th.huf_decompress_128(blobs[:1]) == [data]
+    with pytest.raises(HufError, match="blob 1, segment 0"):
+        th.huf_decompress_128(blobs)

@@ -69,8 +69,10 @@ def test_from_reference_batch_rejects_table_outside_streams():
 
 def test_entropy_routes():
     _, streams = _streams(35)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tsplit.split_streams(streams, entropy="gpu")
+    host = tsplit.split_streams(streams, entropy="host")
+    gpu = tsplit.split_streams(streams, entropy="gpu", device="cpu")
+    for name in FIELDS:
+        assert torch.equal(getattr(gpu, name), getattr(host, name)), name
     with pytest.raises(ValueError):
         tsplit.split_streams(streams, entropy="tpu")
 
