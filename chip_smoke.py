@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from lizard_tpu_torch/csrc with nvcc (into
-build/lizard_tpu_torch/), then runs the port's main path, decoding
-independent compressed streams and blockIndependent frames, and checks
-every result against the input bytes:
+build/lizard_tpu_torch/), then runs the port's main paths, decoding
+independent compressed streams and blockIndependent frames and compressing
+on the card, and checks every result against the input bytes:
 
 1. device: the card, and nvidia-smi's name and power limit;
 2. build: every kernel source, one nvcc each, all started together;
@@ -19,9 +19,11 @@ every result against the input bytes:
    lz_decode, no host round trip between them); both kernels' times and
    floors, the steps of the path, and the host-entropy route beside it;
 5. kernel against plain: lz_decode against lz_decode_plain on the card, on
-   the whole batch of levels 10 and 21, and at 35 and 41 huf_decode
-   against huf_decode_plain and lz_decode against lz_decode_plain on the
-   filled inputs;
+   the first 64 streams of the batch of levels 10 and 21, and at 35 and 41
+   huf_decode against huf_decode_plain and lz_decode against
+   lz_decode_plain on the filled inputs of the first 64 streams (the plain
+   versions are Python loops over tokens and symbols: the whole batch
+   took ~150 s);
 6. level sweep: ~1 MB at levels 12, 19, 29, 31, 35, 41, 45, 49;
 7. frames: a level-21 frame with 4 MB blocks (32 chained inner blocks,
    off24 matches present), a level-41 frame with 4 MB blocks (32 chained
@@ -30,8 +32,23 @@ every result against the input bytes:
    too, on the kernel inputs that its own path gives;
 8. corruption: truncated and altered streams, and altered Huff0 blobs,
    raise CorruptError;
-9. the kernels line (one JSON object per kernel);
-10. the last line: {"ok": true, "device": {...}}.
+9. full-size encode: the same corpus in 256 x 128 KB blocks compressed on
+   the card by encode_blocks_lanes (match_find, chain_walk at 49,
+   parse_tokens, native emission and Huff0) at levels 11, 21, 35 and 49:
+   end-to-end time, the steps, each kernel's time and HBM floor, the native
+   host encoder beside it, and every stream decoded on the card and by the
+   native decoder;
+10. encoder kernels against plain: the three kernels against their plain
+   versions on the card at full width at the four levels (maps, token
+   counts and tokens exactly);
+11. encode sweep: every level 10-49 at ~1 MB, decoded back; one level per
+   distinct encoder tier held against the plain versions;
+12. encode edge blocks (sizes 0-4097, a run, random, a 4-symbol alphabet)
+   at 11, 21 and 49, held against the plain versions at 11 and 49, and a
+   4 MB-block frame at -21 compressed on the card and decoded by the
+   port;
+13. the kernels line (one JSON object per kernel);
+14. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -52,6 +69,20 @@ HUF_LEVELS = (35, 41)
 SWEEP_LEVELS = (12, 19, 29, 31, 35, 41, 45, 49)
 KERNEL_REPS = 10
 PLAIN_TOLERANCE = 0            # decoded bytes, lengths, status: exact
+PLAIN_STREAMS = 64             # streams of a full batch held against plain
+ENC_LEVELS = (11, 21, 35, 49)
+ENC_REPS = 3
+# one level per distinct encoder tier (EncCfg): both codeword families,
+# both Huff0 stages, every k5 / chain / far variant
+ENC_TIER_LEVELS = (10, 20, 31, 41, 12, 22, 33, 43, 15, 45, 16, 37, 18, 49)
+ENC_TOLERANCE = 0              # maps, token counts and tokens: exact
+# (name, source, line and function of the TPU kernel it replaces, the level
+# whose time heads its entry)
+ENC_KERNELS = (
+    ("match_find", "enc_match", 219, "_p1_kernel", 11),
+    ("chain_walk", "enc_chain", 538, "_p15_kernel", 49),
+    ("parse_tokens", "enc_parse", 762, "_pA_kernel", 11),
+)
 
 
 def emit(phase: str, **kv) -> None:
@@ -186,6 +217,199 @@ def huf_floor_bytes(plan) -> tuple[int, int]:
     return read, written
 
 
+def enc_launches(te) -> tuple[int, int, int]:
+    """The launch counts of match_find, chain_walk and parse_tokens."""
+    return (te.match_find.launches, te.chain_walk.launches,
+            te.parse_tokens.launches)
+
+
+def reset_enc_launches(te) -> None:
+    te.match_find.launches = te.chain_walk.launches = 0
+    te.parse_tokens.launches = 0
+
+
+def check_enc_launches(te, cfg, what: str) -> tuple[int, int, int]:
+    """The encoder kernels' launches since the last reset; raises unless
+    match_find and parse_tokens launched, and chain_walk launched exactly
+    at the chain tiers."""
+    got = enc_launches(te)
+    if got[0] < 1 or got[2] < 1 or (got[1] >= 1) != bool(cfg.chain):
+        raise AssertionError(f"{what}: encoder kernel launches {got}")
+    return got
+
+
+def enc_floor_bytes(te, cfg, n_blocks: int, tokens: int) -> dict:
+    """Bytes each encoder kernel must move, each input read once and each
+    output written once: the packed rows (and lengths), the uint16 maps
+    in and out, and 12 bytes per token plus a count per block."""
+    rows = n_blocks * (cfg.n + te.PAD)
+    lens = 4 * n_blocks
+    one_map = 2 * n_blocks * cfg.n
+    return {"match_find": rows + lens + cfg.nmaps * one_map,
+            "chain_walk": rows + (cfg.nmaps + cfg.ncand) * one_map,
+            "parse_tokens": rows + lens + cfg.ncand * one_map + 12 * tokens
+            + 4 * n_blocks}
+
+
+def encode_against_plain(te, blocks, level: int, what: str) -> dict:
+    """match_find, chain_walk (chain tiers) and parse_tokens against their
+    plain versions on the card, on the inputs the encode path gives them
+    at `level`: maps, token counts and the used token slots within
+    ENC_TOLERANCE. Emits the comparison; returns {kernel: (max_abs_err,
+    plain host ms)}, the plain versions timed on the host clock,
+    synchronised."""
+    import torch
+    cfg = te.cfg_for_level(level)
+    data, lens = te.pack_blocks(blocks, cfg, "cuda")
+
+    def plain(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*args)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    def err(a, b):
+        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+    out = {}
+    maps = te.match_find(data, lens, cfg)
+    pmaps, ms = plain(te.match_find_plain, data, lens, cfg)
+    out["match_find"] = (err(maps, pmaps), ms)
+    if cfg.chain:
+        won = te.chain_walk(data, lens, maps, cfg)
+        pwon, ms = plain(te.chain_walk_plain, data, lens, maps, cfg)
+        out["chain_walk"] = (err(won, pwon), ms)
+        maps = won
+    pcfg = te._parse_cfg(cfg)
+    tok, counts = te.parse_tokens(data, lens, maps, pcfg)
+    (ptok, pcounts), ms = plain(te.parse_tokens_plain, data, lens, maps, pcfg)
+    used = (torch.arange(cfg.max_tokens, device=counts.device)[None, :]
+            < counts[:, None].long())
+    out["parse_tokens"] = (max(err(counts, pcounts),
+                               err(tok[used], ptok[used])), ms)
+    if (max(v[0] for v in out.values()) > ENC_TOLERANCE
+            or bool((counts < 0).any())):
+        raise AssertionError(f"{what}: an encoder kernel differs from its "
+                             f"plain version: {out}")
+    emit("encoder_vs_plain", what=what, level=level, blocks=len(blocks),
+         tokens=int(counts.sum()),
+         max_abs_err={k: v[0] for k, v in out.items()},
+         plain_ms={k: v[1] for k, v in out.items()})
+    return out
+
+
+def encode_level(te, tld, runtime, chunks, level: int, smi: str) -> dict:
+    """The encode path at full width: encode_blocks_lanes on the card (its
+    launches counted), timed whole; every stream decoded on the card and by
+    the native decoder; the steps, each synchronised; each kernel's CUDA
+    event median and HBM floor; the native host encoder beside it. Emits
+    the record and returns it."""
+    import torch
+    cfg = te.cfg_for_level(level)
+    reset_enc_launches(te)
+    streams = te.encode_blocks_lanes(chunks, level)      # device=None: card
+    torch.cuda.synchronize()
+    launches = check_enc_launches(te, cfg, f"encode level {level}")
+    e2e_runs = []
+    for _ in range(ENC_REPS):
+        t = time.perf_counter()
+        te.encode_blocks_lanes(chunks, level)
+        e2e_runs.append((time.perf_counter() - t) * 1e3)
+    if tld.decompress_lanes(streams) != chunks:
+        raise AssertionError(f"encode level {level}: card decode != input")
+    if [runtime.decompress(s, BLOCK) for s in streams] != chunks:
+        raise AssertionError(f"encode level {level}: native decode != input")
+    # the same path step by step, each step synchronised
+    steps = {}
+    t = time.perf_counter()
+    data, lens = te.pack_blocks(chunks, cfg, "cuda")
+    torch.cuda.synchronize()
+    steps["pack_h2d_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    found = maps = te.match_find(data, lens, cfg)
+    torch.cuda.synchronize()
+    steps["match_find_ms"] = (time.perf_counter() - t) * 1e3
+    if cfg.chain:
+        t = time.perf_counter()
+        maps = te.chain_walk(data, lens, found, cfg)
+        torch.cuda.synchronize()
+        steps["chain_walk_ms"] = (time.perf_counter() - t) * 1e3
+    pcfg = te._parse_cfg(cfg)
+    t = time.perf_counter()
+    tok, counts = te.parse_tokens(data, lens, maps, pcfg)
+    torch.cuda.synchronize()
+    steps["parse_tokens_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    arrs = te.token_arrays(tok, counts)
+    steps["d2h_tokens_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    again = [bytes([level]) + te.emit_inner(d, *a, level)
+             for d, a in zip(chunks, arrs)]
+    steps["emit_and_assemble_ms"] = (time.perf_counter() - t) * 1e3
+    if again != streams:
+        raise AssertionError(f"encode level {level}: the steps gave other "
+                             "streams than encode_blocks_lanes")
+    tokens = int(counts.sum())
+    kernel_ms = {"match_find": cuda_ms(
+        lambda: te.match_find(data, lens, cfg), KERNEL_REPS)}
+    if cfg.chain:
+        kernel_ms["chain_walk"] = cuda_ms(
+            lambda: te.chain_walk(data, lens, found, cfg), KERNEL_REPS)
+    kernel_ms["parse_tokens"] = cuda_ms(
+        lambda: te.parse_tokens(data, lens, maps, pcfg), KERNEL_REPS)
+    floors = enc_floor_bytes(te, cfg, len(chunks), tokens)
+    bound_ms = {k: floors[k] / HBM_BYTES_PER_S * 1e3 for k in kernel_ms}
+    t = time.perf_counter()
+    native = [runtime.compress(c, level) for c in chunks]
+    native_ms = (time.perf_counter() - t) * 1e3
+    size = sum(map(len, chunks))
+    comp = sum(map(len, streams))
+    e2e = statistics.median(e2e_runs)
+    rec = {"level": level, "blocks": len(chunks), "bytes": size,
+           "compressed_bytes": comp, "ratio": comp / size,
+           "tokens": tokens, "launches": dict(zip(
+               ("match_find", "chain_walk", "parse_tokens"), launches)),
+           "e2e_ms": e2e, "e2e_runs_ms": e2e_runs,
+           "e2e_gbps": size / e2e / 1e6, "steps": steps,
+           "kernel_ms": kernel_ms, "hbm_floor_ms": bound_ms,
+           "hbm_floor_bytes": {k: floors[k] for k in kernel_ms},
+           "native_compressed_bytes": sum(map(len, native)),
+           "native_ratio": sum(map(len, native)) / size,
+           "native_host_ms": native_ms, "card": smi}
+    emit("encode", **rec)
+    return rec
+
+
+def encoder_entry(name, src, line, func, main_level, enc, enc_err,
+                  enc_plain_ms, n_blocks) -> dict:
+    """The kernels-line entry of one encoder kernel from the full-size
+    encode records `enc` (launches summed over their main-path runs)."""
+    levels = [lv for lv in ENC_LEVELS if name in enc[lv]["kernel_ms"]]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"lizard_tpu_torch/csrc/{src}.cu",
+        "replaces": f"lizard_tpu/ops/enc_lanes.py:{line}::{func}",
+        "launches": sum(enc[lv]["launches"][name] for lv in ENC_LEVELS),
+        "max_abs_err": enc_err[name],
+        "tolerance": ENC_TOLERANCE,
+        "matches_plain": enc_err[name] <= ENC_TOLERANCE,
+        "ms": enc[main_level]["kernel_ms"][name],
+        "plain_ms": enc_plain_ms[name][main_level],
+        "bound_ms": enc[main_level]["hbm_floor_ms"][name],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"level {main_level}, {n_blocks} blocks x 128 KB",
+        "ms_by_level": {str(lv): enc[lv]["kernel_ms"][name]
+                        for lv in levels},
+        "plain_ms_by_level": {str(lv): enc_plain_ms[name][lv]
+                              for lv in levels},
+        "bound_ms_by_level": {str(lv): enc[lv]["hbm_floor_ms"][name]
+                              for lv in levels},
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -196,8 +420,10 @@ def main() -> int:
     from lizard_tpu_torch import runtime
     from lizard_tpu_torch.errors import CorruptError
     from lizard_tpu_torch.format.constants import LIZARDF_BLOCK_SIZES
-    from lizard_tpu_torch.frame import compress_frame_fast
+    from lizard_tpu_torch.frame import (compress_frame_fast,
+                                        compress_frame_lanes)
     from lizard_tpu_torch.ops import _build
+    from lizard_tpu_torch.ops import enc_lanes as te
     from lizard_tpu_torch.ops import huf128 as th
     from lizard_tpu_torch.ops import lane_decode as tld
     from lizard_tpu_torch.ops.fuse import build_fused_plan
@@ -378,21 +604,24 @@ def main() -> int:
              host_entropy_e2e_ms=statistics.median(host_runs),
              host_entropy_e2e_runs_ms=host_runs, steps=steps, card=smi)
 
-    # 5. kernel against plain, on the card: the whole batch of each main
-    # level; at the Huffman levels both kernels, on the route's own inputs.
-    # The sweep and the frames below are held against them too, each at its
-    # own shape, after its own run of the path.
+    # 5. kernel against plain, on the card: the first PLAIN_STREAMS streams
+    # of each main level's batch; at the Huffman levels both kernels, on the
+    # route's own inputs. The sweep and the frames below are held against
+    # them too, each at its own shape, after its own run of the path.
     plain_ms = {}
     huf_plain_ms = {}
     max_err = huf_err = 0
+    part = f"the first {PLAIN_STREAMS} of {len(chunks)} x 128 KB streams"
     for level in MAIN_LEVELS:
-        rec = hold_against_plain(tld, staged[level][1],
-                                 f"level {level}, {len(chunks)} x 128 KB")
+        args = stage_batch(split_streams(staged[level][0][:PLAIN_STREAMS]),
+                           "cuda")
+        rec = hold_against_plain(tld, args, f"level {level}, {part}")
         plain_ms[level] = rec["plain_ms"]
         max_err = max(max_err, rec["max_abs_err"])
     for level in HUF_LEVELS:
-        huf, rec = both_against_plain(
-            th, tld, staged[level][0], f"level {level}, {len(chunks)} x 128 KB")
+        huf, rec = both_against_plain(th, tld,
+                                      staged[level][0][:PLAIN_STREAMS],
+                                      f"level {level}, {part}")
         plain_ms[level] = rec["plain_ms"]
         huf_plain_ms[level] = huf["plain_ms"]
         max_err = max(max_err, rec["max_abs_err"])
@@ -464,7 +693,83 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("corruption", raised=raised)
 
-    # 9. kernels line
+    # 9. full-size encode on the card at 11, 21, 35 and 49
+    enc = {level: encode_level(te, tld, runtime, chunks, level, smi)
+           for level in ENC_LEVELS}
+
+    # 10. encoder kernels against plain at full width, each level
+    enc_err = {"match_find": 0, "chain_walk": 0, "parse_tokens": 0}
+    enc_plain_ms = {k: {} for k in enc_err}
+
+    def note(level, rec, full=False):
+        for k, (err, ms) in rec.items():
+            enc_err[k] = max(enc_err[k], err)
+            if full:
+                enc_plain_ms[k][level] = ms
+
+    for level in ENC_LEVELS:
+        note(level, encode_against_plain(
+            te, chunks, level, f"level {level}, {len(chunks)} x 128 KB"),
+            full=True)
+
+    # 11. encode sweep: every level at ~1 MB on the card, decoded back;
+    # one level per distinct tier against the plain versions
+    sweep_chunks = [sweep[i:i + BLOCK] for i in range(0, len(sweep), BLOCK)]
+    for level in range(10, 50):
+        cfg = te.cfg_for_level(level)
+        reset_enc_launches(te)
+        streams = te.encode_blocks_lanes(sweep_chunks, level)
+        torch.cuda.synchronize()
+        launches = check_enc_launches(te, cfg, f"encode sweep {level}")
+        if (decompress_lanes(streams) != sweep_chunks
+                or [runtime.decompress(s, BLOCK) for s in streams]
+                != sweep_chunks):
+            raise AssertionError(f"encode sweep level {level}: round trip")
+        if level in ENC_TIER_LEVELS:
+            note(level, encode_against_plain(te, sweep_chunks, level,
+                                             f"encode sweep level {level}"))
+        emit("encode_sweep", level=level, bytes=len(sweep),
+             compressed_bytes=sum(map(len, streams)), launches=launches,
+             against_plain=level in ENC_TIER_LEVELS)
+
+    # 12. edge blocks and a frame, compressed on the card
+    import numpy as np
+    rng = np.random.default_rng(7)
+    edge = [gen(size, seed=size, proba=0.5)
+            for size in (0, 1, 20, 21, 22, 4097)]
+    edge += [b"\x07" * BLOCK, rng.integers(0, 256, BLOCK, np.uint8).tobytes(),
+             rng.integers(0, 4, BLOCK, np.uint8).tobytes()]
+    for level in (11, 21, 49):
+        cfg = te.cfg_for_level(level)
+        reset_enc_launches(te)
+        streams = te.encode_blocks_lanes(edge, level)
+        torch.cuda.synchronize()
+        launches = check_enc_launches(te, cfg, f"edge blocks {level}")
+        if (decompress_lanes(streams) != edge
+                or [runtime.decompress(s, max(len(d), 1))
+                    for s, d in zip(streams, edge)] != edge):
+            raise AssertionError(f"edge blocks level {level}: round trip")
+        if streams[7][1] != 0x80:
+            raise AssertionError("the random block was not stored")
+        # against plain at 11 and 49 only: the plain parse of the 4-symbol
+        # block takes ~60 s a level
+        if level != 21:
+            note(level, encode_against_plain(te, edge, level,
+                                             f"edge blocks level {level}"))
+        emit("encode_edge", level=level, sizes=[len(d) for d in edge],
+             compressed=[len(s) for s in streams], launches=launches)
+    reset_enc_launches(te)
+    frame = compress_frame_lanes(far, 21, block_size_id=4)
+    torch.cuda.synchronize()
+    launches = check_enc_launches(te, te.cfg_for_level(21), "frame -21")
+    lz_decode.launches = 0
+    if ltt.decompress_frame(frame) != far or lz_decode.launches < 1:
+        raise AssertionError("the -21 frame compressed on the card did not "
+                             "decode")
+    emit("encode_frame", level=21, block_size_id=4, bytes=len(far),
+         frame_bytes=len(frame), launches=launches)
+
+    # 13. kernels line
     t10 = timing[MAIN_LEVELS[0]]
     h41 = huf_timing[HUF_LEVELS[-1]]
     print(json.dumps({"kernels": [{
@@ -482,6 +787,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "shape": f"level {MAIN_LEVELS[0]}, {len(chunks)} chains x 128 KB",
+        "plain_shape": part,
         "ms_by_level": {str(lv): timing[lv]["ms"] for lv in timing},
         "plain_ms_by_level": {str(lv): plain_ms[lv] for lv in plain_ms},
         "bound_ms_by_level": {str(lv): timing[lv]["bound_ms"]
@@ -502,15 +808,19 @@ def main() -> int:
         "bound_ms": h41["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "plain_shape": f"the Huff0 blobs of {part}",
         "shape": f"level {HUF_LEVELS[-1]}, the Huff0 blobs of "
                  f"{len(chunks)} x 128 KB streams",
         "ms_by_level": {str(lv): huf_timing[lv]["ms"] for lv in HUF_LEVELS},
         "plain_ms_by_level": {str(lv): huf_plain_ms[lv] for lv in HUF_LEVELS},
         "bound_ms_by_level": {str(lv): huf_timing[lv]["bound_ms"]
                               for lv in HUF_LEVELS},
-    }]}), flush=True)
+    }] + [encoder_entry(name, src, line, func, main_level, enc, enc_err,
+                        enc_plain_ms, len(chunks))
+          for name, src, line, func, main_level in ENC_KERNELS]}),
+          flush=True)
 
-    # 10. last line
+    # 14. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

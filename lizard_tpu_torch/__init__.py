@@ -16,11 +16,18 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
                             its wrapper and its plain PyTorch version
 - ``ops.fuse``           -- Huff0 then LZ decode on the device, no host
                             round trip between them (levels 30-49)
+- ``ops.enc_lanes``      -- the device encoder: the CUDA kernels
+                            csrc/enc_match.cu, csrc/enc_chain.cu and
+                            csrc/enc_parse.cu, their wrappers and plain
+                            PyTorch versions, native emission and Huff0
 - ``frame`` / ``api``    -- frame container and one-shot entry points
+                            (compress(backend="gpu"), compress_frame_lanes)
 
 Every entry point runs on the card unless the caller passes device="cpu".
 Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
 default); entropy="host" decodes the Huffman stage with the native Huff0.
+Compressing with backend="gpu" (levels 10-49) finds matches and parses on
+the card and emits the codewords, and the Huff0 stage, on the host.
 """
 
 __version__ = "0.1.0"

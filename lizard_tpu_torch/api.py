@@ -1,25 +1,40 @@
 """Top-level one-shot API of the port (the counterpart of lizard_tpu/api.py):
-block-stream compression through the native encoder, and block-stream and
-frame decompression on the card (device=None means "cuda"; pass
-device="cpu" for the plain PyTorch route)."""
+block-stream compression through the native encoder or the device encoder,
+and block-stream and frame decompression on the card (device=None means
+"cuda"; pass device="cpu" for the plain PyTorch route)."""
 
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import LIZARD_DEFAULT_CLEVEL
 from lizard_tpu_torch.frame import decompress_frame_lanes
+from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 
 
 def compress(data: bytes, level: int = LIZARD_DEFAULT_CLEVEL,
-             backend: str = "native", max_out: int | None = None) -> bytes:
-    """One-shot block-stream compression (Lizard_compress equivalent)
-    through the native C++ encoder: all 40 levels, valid streams, not
-    byte-identical to liblizard. The bit-exact "ref" encoder waits for the
-    port of the oracle."""
-    if backend != "native":
+             backend: str = "native", max_out: int | None = None,
+             device=None) -> bytes:
+    """One-shot block-stream compression (Lizard_compress equivalent).
+
+    backend="native": the native C++ encoder on the host, all 40 levels,
+    valid streams, not byte-identical to liblizard. backend="gpu": the
+    device encoder (ops/enc_lanes.py) on `device`, the card unless
+    device="cpu", levels 10-49; the counterpart of the JAX package's
+    backend="tpu", byte-identical to it. The bit-exact "ref" encoder waits
+    for the port of the oracle. Raises ValueError when the stream exceeds
+    max_out."""
+    if backend == "native":
+        return runtime.compress(data, level, max_out=max_out)
+    if backend != "gpu":
         raise NotImplementedError(
-            f"backend {backend!r}: only 'native' is ported so far")
-    return runtime.compress(data, level, max_out=max_out)
+            f"backend {backend!r}: only 'native' and 'gpu' are ported")
+    if not 10 <= level <= 49:
+        raise ValueError("backend='gpu' supports levels 10-49")
+    out = encode_streams_lanes([data], level=level, device=device)[0]
+    if max_out is not None and len(out) > max_out:
+        raise ValueError(
+            f"compressed size {len(out)} exceeds max_out {max_out}")
+    return out
 
 
 def decompress(data: bytes, max_out: int | None = None, device=None) -> bytes:

@@ -10,6 +10,6 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device; pass device='cpu' to decode on the CPU")
+                "no CUDA device; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)

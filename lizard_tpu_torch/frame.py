@@ -6,7 +6,8 @@ Container: magic, descriptor (FLG/BD/contentSize/HC), LE32-size-prefixed
 blocks (high bit = stored), endmark, optional xxh32 content checksum.
 `decompress_frame_lanes` decodes every block of a blockIndependent frame as
 one chain of the CUDA LZ kernel (ops/lane_decode.py), after the Huff0
-kernel at levels 30-49 (ops/fuse.py).
+kernel at levels 30-49 (ops/fuse.py). `compress_frame_lanes` compresses
+every frame block on the card with the device encoder (ops/enc_lanes.py).
 """
 
 from lizard_tpu_torch import runtime
@@ -19,6 +20,7 @@ from lizard_tpu_torch.format.constants import (
 )
 from lizard_tpu_torch.format.levels import LEVELS, validate_level
 from lizard_tpu_torch.device import resolve_device
+from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 from lizard_tpu_torch.runtime import xxh32
 
@@ -128,25 +130,36 @@ def compress_frame_fast(data: bytes, level: int = 11,
     """Fast frame compression: blockIndependent frame, each block compressed
     by the native C++ encoder (valid streams for any level 10..49 including
     the Huff0 stage at >= 30; not byte-identical to the reference)."""
+    level, block_size, header = _header(level, block_size_id, len(data),
+                                        content_checksum, content_size)
+    parts = [data[pos:pos + block_size]
+             for pos in range(0, len(data), block_size)]
+    return _frame(header, [runtime.compress(p, level) for p in parts],
+                  parts, data, content_checksum)
+
+
+def _header(level, block_size_id, size, content_checksum, content_size):
+    """(level, block size, header bytes without the magic and the header
+    checksum) of a blockIndependent frame."""
     level = validate_level(level)
     if block_size_id == 0:
         block_size_id = 1
-    block_size_id = _optimal_bsid(block_size_id, len(data))
-    block_size = LIZARDF_BLOCK_SIZES[block_size_id]
-
-    out = bytearray()
-    out += LIZARDF_MAGIC.to_bytes(4, "little")
+    block_size_id = _optimal_bsid(block_size_id, size)
     flg = (1 << 6) | (1 << 5) | (int(content_checksum) << 2) \
         | ((1 if content_size else 0) << 3)
     header = bytearray([flg, (block_size_id & 7) << 4])
     if content_size:
-        header += len(data).to_bytes(8, "little")
-    out += header
-    out.append((xxh32(bytes(header)) >> 8) & 0xFF)
+        header += size.to_bytes(8, "little")
+    return level, LIZARDF_BLOCK_SIZES[block_size_id], bytes(header)
 
-    for pos in range(0, len(data), block_size):
-        part = data[pos:pos + block_size]
-        comp = runtime.compress(part, level)
+
+def _frame(header, comps, parts, data, content_checksum) -> bytes:
+    """The frame of the compressed blocks `comps` of `parts`: a block that
+    does not shrink is stored."""
+    out = bytearray(LIZARDF_MAGIC.to_bytes(4, "little"))
+    out += header
+    out.append((xxh32(header) >> 8) & 0xFF)
+    for part, comp in zip(parts, comps):
         if len(comp) >= len(part):
             out += (len(part) | LIZARDF_BLOCKUNCOMPRESSED_FLAG).to_bytes(4, "little")
             out += part
@@ -157,6 +170,23 @@ def compress_frame_fast(data: bytes, level: int = 11,
     if content_checksum:
         out += xxh32(data).to_bytes(4, "little")
     return bytes(out)
+
+
+def compress_frame_lanes(data: bytes, level: int = 11,
+                         block_size_id: int = 0,
+                         content_checksum: bool = True,
+                         content_size: bool = False, device=None) -> bytes:
+    """Frame compression with the device encoder on `device` (the card
+    unless device="cpu"): a blockIndependent frame whose blocks' 128 KB
+    chunks are compressed in one batch (ops/enc_lanes.py::
+    encode_streams_lanes), levels 10-49. The counterpart of
+    lizard_tpu/frame.py::compress_frame_tpu with engine="lanes"."""
+    level, block_size, header = _header(level, block_size_id, len(data),
+                                        content_checksum, content_size)
+    parts = [data[pos:pos + block_size]
+             for pos in range(0, len(data), block_size)]
+    comps = encode_streams_lanes(parts, level=level, device=device)
+    return _frame(header, comps, parts, data, content_checksum)
 
 
 def decompress_frame_lanes(src: bytes, device=None,

@@ -1,10 +1,12 @@
 """ctypes binding over the shared native host runtime
 (native/lizard_runtime.cpp, built into native/build/liblizard_tpu_runtime.so).
 
-The port uses four of its entry points: the native encoder (`compress`, all
+The port uses these of its entry points: the native encoder (`compress`, all
 levels 10-49), the scalar block decoder (`decompress`, a cross-check), the
 Huff0 stream decoder (`huf_decompress`, the host entropy route of levels
-30-49) and `xxh32` (frame checksums). When the file is missing or does not
+30-49), `xxh32` (frame checksums), and the device encoder's host stage: the
+token emitters (`emit_lz4`, `emit_liz`, `emit_liz_far`) and the Huff0
+stream encoder (`huf_compress`). When the file is missing or does not
 load, it is built with the command of tools/build_native.sh, into a
 temporary file that then replaces the library, both under an exclusive lock
 on native/build/.lock: several processes may start at once (test workers),
@@ -16,6 +18,8 @@ import ctypes
 import fcntl
 import os
 import subprocess
+
+import numpy as np
 
 from lizard_tpu_torch.errors import CorruptError, HufError
 
@@ -68,6 +72,26 @@ def _load() -> ctypes.CDLL:
     lib.ltpu_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                   ctypes.c_char_p, ctypes.c_size_t,
                                   ctypes.c_int, ctypes.c_int]
+    lib.ltpu_huf_compress.restype = ctypes.c_int64
+    lib.ltpu_huf_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                      ctypes.c_char_p, ctypes.c_size_t]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.ltpu_emit_lz4.restype = ctypes.c_int64
+    lib.ltpu_emit_lz4.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  i64p, i64p, i64p, ctypes.c_int64,
+                                  ctypes.c_char_p, ctypes.c_char_p,
+                                  ctypes.c_int64]
+    lib.ltpu_emit_liz.restype = ctypes.c_int64
+    lib.ltpu_emit_liz.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  i64p, i64p, i64p, ctypes.c_int64,
+                                  ctypes.c_char_p, ctypes.c_char_p,
+                                  ctypes.c_int64, ctypes.c_char_p, i64p]
+    lib.ltpu_emit_liz_far.restype = ctypes.c_int64
+    lib.ltpu_emit_liz_far.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, i64p, i64p, i64p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64, i64p,
+        ctypes.c_char_p, ctypes.c_int64, i64p,
+        ctypes.c_char_p, i64p, ctypes.c_char_p, i64p]
     _lib = lib
     return lib
 
@@ -110,3 +134,77 @@ def compress(data: bytes, level: int = 11, accel: int = 1,
     if r < 0:
         raise RuntimeError("native compression failed")
     return dst.raw[:r]
+
+
+def huf_compress(data: bytes) -> bytes:
+    """Native Huff0 compression (4 streams). b"" when the stream does not
+    compress (HUF_compress returning 0): the caller stores it raw."""
+    cap = len(data) + 1024
+    dst = ctypes.create_string_buffer(cap)
+    r = _load().ltpu_huf_compress(data, len(data), dst, cap)
+    if r < 0:
+        raise RuntimeError("native huf compression overflowed its buffer")
+    return dst.raw[:r]
+
+
+def _tokens(st, ml, off):
+    """The token arrays as contiguous int64 numpy arrays, and their
+    pointers."""
+    arrs = [np.ascontiguousarray(a, np.int64) for a in (st, ml, off)]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    return arrs, [a.ctypes.data_as(i64p) for a in arrs]
+
+
+def emit_lz4(data: bytes, st, ml, off) -> tuple[bytes, bytes]:
+    """fastLZ4 codewords of a token list (start, length, offset arrays in
+    parse order): (flags, literals) stream bytes."""
+    arrs, ptrs = _tokens(st, ml, off)
+    nt = len(arrs[0])
+    cap = len(data) + nt * 10 + 32
+    flags = ctypes.create_string_buffer(max(nt, 1))
+    lits = ctypes.create_string_buffer(cap)
+    r = _load().ltpu_emit_lz4(data, len(data), *ptrs, nt, flags, lits, cap)
+    if r < 0:
+        raise RuntimeError("emit_lz4 overflowed its buffer")
+    return flags.raw[:nt], lits.raw[:r]
+
+
+def emit_liz(data: bytes, st, ml, off) -> tuple[bytes, bytes, bytes]:
+    """LIZv1 codewords of a token list whose offsets are all < 2^16 (a
+    repeated offset takes the rep class): (flags, literals, off16)."""
+    arrs, ptrs = _tokens(st, ml, off)
+    nt = len(arrs[0])
+    cap = len(data) + nt * 10 + 32
+    flags = ctypes.create_string_buffer(max(nt, 1))
+    lits = ctypes.create_string_buffer(cap)
+    off16 = ctypes.create_string_buffer(max(nt * 2, 1))
+    olen = ctypes.c_int64(0)
+    r = _load().ltpu_emit_liz(data, len(data), *ptrs, nt, flags, lits, cap,
+                              off16, ctypes.byref(olen))
+    if r < 0:
+        raise RuntimeError("emit_liz overflowed its buffer")
+    return flags.raw[:nt], lits.raw[:r], off16.raw[:olen.value]
+
+
+def emit_liz_far(data: bytes, st, ml, off) -> tuple[bytes, bytes, bytes,
+                                                    bytes]:
+    """LIZv1 codewords of a token list with the full codeword set, the
+    off24 class for offsets >= 2^16 included: (flags, literals, off16,
+    off24)."""
+    arrs, ptrs = _tokens(st, ml, off)
+    nt = len(arrs[0])
+    cap = len(data) + nt * 10 + 32
+    fcap = 2 * nt + 8          # a literal carrier and a long-offset token
+    flags = ctypes.create_string_buffer(fcap)
+    lits = ctypes.create_string_buffer(cap)
+    off16 = ctypes.create_string_buffer(max(nt * 2, 1))
+    off24 = ctypes.create_string_buffer(max(nt * 3, 1))
+    nf, nl, n16, n24 = (ctypes.c_int64(0) for _ in range(4))
+    r = _load().ltpu_emit_liz_far(
+        data, len(data), *ptrs, nt, flags, fcap, ctypes.byref(nf), lits,
+        cap, ctypes.byref(nl), off16, ctypes.byref(n16), off24,
+        ctypes.byref(n24))
+    if r < 0:
+        raise RuntimeError("emit_liz_far overflowed its buffer")
+    return (flags.raw[:nf.value], lits.raw[:nl.value],
+            off16.raw[:n16.value], off24.raw[:n24.value])

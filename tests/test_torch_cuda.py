@@ -1,6 +1,7 @@
-"""The CUDA kernels csrc/lz_decode.cu and csrc/huf_decode.cu against their
-plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
-skips without one.
+"""The CUDA kernels (csrc/lz_decode.cu, csrc/huf_decode.cu and the device
+encoder's csrc/enc_match.cu, csrc/enc_chain.cu, csrc/enc_parse.cu) against
+their plain PyTorch versions, on the card. Every test here needs an NVIDIA
+GPU and skips without one.
 
 This file imports neither JAX nor lizard_tpu, so it also runs where JAX is
 not installed; tests/conftest.py imports JAX, so run it there with
@@ -8,11 +9,15 @@ not installed; tests/conftest.py imports JAX, so run it there with
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError, HufError
+from lizard_tpu_torch.ops import enc_lanes as te
 from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops.fuse import build_fused_plan
@@ -178,3 +183,92 @@ def test_huf_kernel_tablelog_12_and_corrupt_status(card):
     assert th.huf_decompress_128(blobs[:1]) == [data]
     with pytest.raises(HufError, match="blob 1, segment 0"):
         th.huf_decompress_128(blobs)
+
+
+# ------------------------------------------------------- device encoder
+
+SMALL = te.EncCfg(n=8192, hl=10, maxoff=2047,
+                  probes=(8, 12, 16, 24, 32, 64, 128, 256), far_dist=2048)
+
+
+def _enc_blocks(seed):
+    """8 KB blocks: redundant, text, far repeats (2-4 KB back), a 4-symbol
+    alphabet (dense tokens), a run, random, short and empty."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, 256, 4096, np.uint8).tobytes()
+    return [gen(8192, seed, proba=0.7), text_like(8192, seed + 1),
+            head[:3000] * 2 + head[:2000],
+            rng.integers(0, 4, 8192, np.uint8).tobytes(), b"\x55" * 3000,
+            rng.integers(0, 256, 8192, np.uint8).tobytes(),
+            gen(100, seed + 2), b""]
+
+
+def _encode_against_plain(blocks, cfg, card):
+    """match_find, chain_walk (chain tiers) and parse_tokens on the card
+    against their plain versions on the same inputs, launches counted.
+    Returns the kernel's token arrays."""
+    data, lens = te.pack_blocks(blocks, cfg, card)
+    before = (te.match_find.launches, te.chain_walk.launches,
+              te.parse_tokens.launches)
+    maps = te.match_find(data, lens, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(maps, te.match_find_plain(data, lens, cfg))
+    if cfg.chain:
+        won = te.chain_walk(data, lens, maps, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(won, te.chain_walk_plain(data, lens, maps, cfg))
+        maps = won
+    pcfg = dataclasses.replace(cfg, chain=0)
+    tok, counts = te.parse_tokens(data, lens, maps, pcfg)
+    torch.cuda.synchronize()
+    ptok, pcounts = te.parse_tokens_plain(data, lens, maps, pcfg)
+    assert torch.equal(counts, pcounts) and (counts >= 0).all()
+    got = te.token_arrays(tok, counts)
+    want = te.token_arrays(ptok, pcounts)
+    for g, w in zip(got, want):
+        assert all(np.array_equal(a, b) for a, b in zip(g, w))
+    assert (te.match_find.launches, te.chain_walk.launches,
+            te.parse_tokens.launches) == (before[0] + 1,
+                                          before[1] + bool(cfg.chain),
+                                          before[2] + 1)
+    return got
+
+
+@pytest.mark.parametrize("tier", [
+    dict(), dict(lazy=1, k5=1), dict(lazy=2, k5=2), dict(lazy=2, k5=4),
+    dict(lazy=1, far=1), dict(lazy=2, k5=4, far=1),
+    dict(lazy=2, k5=4, far=1, hl=16),               # tables in global memory
+    dict(lazy=2, chain=2), dict(lazy=2, k5=2, chain=3, pref=16),
+    dict(lazy=2, chain=16, pref=16, hl=16),         # global, as at x8-x9
+], ids=str)
+def test_encoder_kernels_match_plain(tier, card):
+    cfg = dataclasses.replace(SMALL, **tier)
+    blocks = _enc_blocks(len(tier))
+    toks = _encode_against_plain(blocks, cfg, card)
+    assert len(toks[3][0]) > 1000                   # the dense block
+    if cfg.far:
+        assert (toks[2][2] >= cfg.far_dist).any()   # far tokens
+    level = (21 if cfg.far else 11) + 20 * (cfg.k5 == 4)
+    streams = te.encode_blocks_lanes(blocks, level, cfg=cfg)
+    assert [runtime.decompress(s, max(len(d), 1))
+            for s, d in zip(streams, blocks)] == blocks
+    assert tld.decompress_lanes(streams) == blocks
+
+
+@pytest.mark.parametrize("level", [11, 21, 35, 49])
+def test_encoder_kernels_full_geometry(level, card):
+    """Two 128 KB blocks at the level's own geometry; the API on the card
+    gives the same stream as on the CPU."""
+    cfg = te.cfg_for_level(level)
+    a = gen(70_000, level, proba=0.5)
+    blocks = [gen(131072, level, proba=0.7), (a + a)[:131072]]
+    _encode_against_plain(blocks, cfg, card)
+    data = b"".join(blocks)
+    out = ltt_compress(data, level)
+    assert out == ltt_compress(data, level, device="cpu")
+    assert runtime.decompress(out, len(data)) == data
+
+
+def ltt_compress(data, level, device=None):
+    from lizard_tpu_torch import compress
+    return compress(data, level, backend="gpu", device=device)

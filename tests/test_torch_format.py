@@ -27,7 +27,8 @@ PKG = os.path.join(ROOT, "lizard_tpu_torch")
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, lizard_tpu_torch, lizard_tpu_torch.frame, "
-            "lizard_tpu_torch.ops.lane_decode, lizard_tpu_torch.ops.fuse; "
+            "lizard_tpu_torch.ops.lane_decode, lizard_tpu_torch.ops.fuse, "
+            "lizard_tpu_torch.ops.enc_lanes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lizard_tpu')]; print(bad)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
