@@ -34,19 +34,22 @@ on the card, and checks every result against the input bytes:
    raise CorruptError;
 9. full-size encode: the same corpus in 256 x 128 KB blocks compressed on
    the card by encode_blocks_lanes (match_find, chain_walk at 49,
-   parse_tokens, native emission and Huff0) at levels 11, 21, 35 and 49:
-   end-to-end time, the steps, each kernel's time and HBM floor, the native
-   host encoder beside it, and every stream decoded on the card and by the
-   native decoder;
-10. encoder kernels against plain: the three kernels against their plain
+   parse_tokens, native emission, at 35 and 49 the Huff0 stage on the card
+   by huf_pack) at levels 11, 21, 35 and 49: end-to-end time, the steps,
+   each kernel's time and HBM floor, the native host encoder beside it, at
+   35 and 49 the host entropy route beside it (the same bytes), and every
+   stream decoded on the card and by the native decoder;
+10. encoder kernels against plain: the four kernels against their plain
    versions on the card at full width at the four levels (maps, token
-   counts and tokens exactly);
-11. encode sweep: every level 10-49 at ~1 MB, decoded back; one level per
-   distinct encoder tier held against the plain versions;
-12. encode edge blocks (sizes 0-4097, a run, random, a 4-symbol alphabet)
-   at 11, 21 and 49, held against the plain versions at 11 and 49, and a
-   4 MB-block frame at -21 compressed on the card and decoded by the
-   port;
+   counts, tokens, packed words, bit counts and status exactly);
+11. encode sweep: every level 10-49 at ~1 MB, decoded back, huf_pack
+   launched at 30-49 and not below; one level per distinct encoder tier
+   held against the plain versions;
+12. encode edge blocks (sizes 0-4097, a run, random, a 4-symbol alphabet,
+   a block whose flags stream is one byte value) at 11, 21 and 49, held
+   against the plain versions at 11 and 49, each Huff0 gate taken at 49
+   (RLE, not compressible, stored, coded), and 4 MB-block frames at -21
+   and -41 compressed on the card and decoded by the port;
 13. the kernels line (one JSON object per kernel);
 14. the last line: {"ok": true, "device": {...}}.
 
@@ -76,13 +79,19 @@ ENC_REPS = 3
 # both Huff0 stages, every k5 / chain / far variant
 ENC_TIER_LEVELS = (10, 20, 31, 41, 12, 22, 33, 43, 15, 45, 16, 37, 18, 49)
 ENC_TOLERANCE = 0              # maps, token counts and tokens: exact
-# (name, source, line and function of the TPU kernel it replaces, the level
+# (kernels-line name, wrapper, source, the TPU kernel it replaces, the level
 # whose time heads its entry)
 ENC_KERNELS = (
-    ("match_find", "enc_match", 219, "_p1_kernel", 11),
-    ("chain_walk", "enc_chain", 538, "_p15_kernel", 49),
-    ("parse_tokens", "enc_parse", 762, "_pA_kernel", 11),
+    ("match_find", "match_find", "enc_match",
+     "lizard_tpu/ops/enc_lanes.py:219::_p1_kernel", 11),
+    ("chain_walk", "chain_walk", "enc_chain",
+     "lizard_tpu/ops/enc_lanes.py:538::_p15_kernel", 49),
+    ("parse_tokens", "parse_tokens", "enc_parse",
+     "lizard_tpu/ops/enc_lanes.py:762::_pA_kernel", 11),
+    ("huf_encode", "huf_pack", "huf_encode",
+     "lizard_tpu/ops/enc_huf.py:41::_henc_kernel", 35),
 )
+ENC_WRAPPERS = ("match_find", "chain_walk", "parse_tokens", "huf_pack")
 
 
 def emit(phase: str, **kv) -> None:
@@ -217,25 +226,39 @@ def huf_floor_bytes(plan) -> tuple[int, int]:
     return read, written
 
 
-def enc_launches(te) -> tuple[int, int, int]:
-    """The launch counts of match_find, chain_walk and parse_tokens."""
+def enc_launches(te, teh) -> tuple[int, int, int, int]:
+    """The launch counts of match_find, chain_walk, parse_tokens and
+    huf_pack."""
     return (te.match_find.launches, te.chain_walk.launches,
-            te.parse_tokens.launches)
+            te.parse_tokens.launches, teh.huf_pack.launches)
 
 
-def reset_enc_launches(te) -> None:
+def reset_enc_launches(te, teh) -> None:
     te.match_find.launches = te.chain_walk.launches = 0
-    te.parse_tokens.launches = 0
+    te.parse_tokens.launches = teh.huf_pack.launches = 0
 
 
-def check_enc_launches(te, cfg, what: str) -> tuple[int, int, int]:
+def check_enc_launches(te, teh, cfg, level: int,
+                       what: str) -> tuple[int, int, int, int]:
     """The encoder kernels' launches since the last reset; raises unless
-    match_find and parse_tokens launched, and chain_walk launched exactly
-    at the chain tiers."""
-    got = enc_launches(te)
-    if got[0] < 1 or got[2] < 1 or (got[1] >= 1) != bool(cfg.chain):
+    match_find and parse_tokens launched, chain_walk launched exactly at
+    the chain tiers and huf_pack exactly at the Huffman levels 30-49 (every
+    input here has a stream that its gates code)."""
+    got = enc_launches(te, teh)
+    if (got[0] < 1 or got[2] < 1 or (got[1] >= 1) != bool(cfg.chain)
+            or (got[3] >= 1) != te.huffman_level(level)):
         raise AssertionError(f"{what}: encoder kernel launches {got}")
     return got
+
+
+def huf_pack_floor_bytes(plan, bits) -> int:
+    """Bytes huf_pack must move: the symbols, the segment rows and the
+    tables read once; the words that hold each segment's bits and end mark,
+    the bit counts and the statuses written once."""
+    used = int(((bits.cpu() + 1 + 31) // 32).sum())
+    n_seg = plan.segs.shape[0]
+    return (plan.data.numel() + 8 * plan.segs.numel()
+            + 4 * plan.tables.numel() + 4 * used + 12 * n_seg)
 
 
 def enc_floor_bytes(te, cfg, n_blocks: int, tokens: int) -> dict:
@@ -251,13 +274,14 @@ def enc_floor_bytes(te, cfg, n_blocks: int, tokens: int) -> dict:
             + 4 * n_blocks}
 
 
-def encode_against_plain(te, blocks, level: int, what: str) -> dict:
-    """match_find, chain_walk (chain tiers) and parse_tokens against their
-    plain versions on the card, on the inputs the encode path gives them
-    at `level`: maps, token counts and the used token slots within
-    ENC_TOLERANCE. Emits the comparison; returns {kernel: (max_abs_err,
-    plain host ms)}, the plain versions timed on the host clock,
-    synchronised."""
+def encode_against_plain(te, teh, blocks, level: int, what: str) -> dict:
+    """match_find, chain_walk (chain tiers), parse_tokens and (levels 30-49)
+    huf_pack against their plain versions on the card, on the inputs the
+    encode path gives them at `level`: maps, token counts, the used token
+    slots, and the packed words, bit counts and statuses of the batch's
+    Huff0 plan within ENC_TOLERANCE. Emits the comparison; returns
+    {wrapper: (max_abs_err, plain host ms)}, the plain versions timed on
+    the host clock, synchronised."""
     import torch
     cfg = te.cfg_for_level(level)
     data, lens = te.pack_blocks(blocks, cfg, "cuda")
@@ -270,7 +294,7 @@ def encode_against_plain(te, blocks, level: int, what: str) -> dict:
         return r, (time.perf_counter() - t) * 1e3
 
     def err(a, b):
-        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
     out = {}
     maps = te.match_find(data, lens, cfg)
@@ -288,8 +312,19 @@ def encode_against_plain(te, blocks, level: int, what: str) -> dict:
             < counts[:, None].long())
     out["parse_tokens"] = (max(err(counts, pcounts),
                                err(tok[used], ptok[used])), ms)
+    huf_ok = True
+    if te.huffman_level(level):
+        emitted = [te.emit_streams(d, *a, level)
+                   for d, a in zip(blocks, te.token_arrays(tok, counts))]
+        plan = teh.plan_huf_streams(te.huf_candidates(emitted))
+        if plan.coded:
+            hargs = plan.stage("cuda")
+            k = teh.huf_pack(**hargs)
+            p, ms = plain(teh.huf_pack_plain, *hargs.values())
+            out["huf_pack"] = (max(err(a, b) for a, b in zip(k, p)), ms)
+            huf_ok = bool((k[2] == teh.OK).all())
     if (max(v[0] for v in out.values()) > ENC_TOLERANCE
-            or bool((counts < 0).any())):
+            or bool((counts < 0).any()) or not huf_ok):
         raise AssertionError(f"{what}: an encoder kernel differs from its "
                              f"plain version: {out}")
     emit("encoder_vs_plain", what=what, level=level, blocks=len(blocks),
@@ -299,23 +334,56 @@ def encode_against_plain(te, blocks, level: int, what: str) -> dict:
     return out
 
 
-def encode_level(te, tld, runtime, chunks, level: int, smi: str) -> dict:
+def e2e_encode_ms(te, chunks, level: int, **kw) -> list[float]:
+    """Host-clock milliseconds of ENC_REPS whole encode_blocks_lanes calls
+    (host bytes in, host streams out)."""
+    runs = []
+    for _ in range(ENC_REPS):
+        t = time.perf_counter()
+        te.encode_blocks_lanes(chunks, level, **kw)
+        runs.append((time.perf_counter() - t) * 1e3)
+    return runs
+
+
+def huf_header_ms(teh, cands) -> float:
+    """Host-clock milliseconds of the header side of a Huff0 plan alone:
+    count, table log, code table and weights header of every stream that
+    passes the count gates."""
+    from lizard_tpu_torch.ref import huf_encode as hr
+    t = time.perf_counter()
+    for src in cands:
+        count, max_sym, largest = hr.fse_count(src, 255)
+        if largest == len(src) or largest <= (len(src) >> 7) + 1:
+            continue
+        log = hr.fse_optimal_table_log(hr.HUF_TABLELOG_DEFAULT, len(src),
+                                       max_sym, minus=1)
+        nb, _, log = hr.huf_build_ctable(count, max_sym, log)
+        hr.huf_write_ctable(nb, max_sym, log)
+    return (time.perf_counter() - t) * 1e3
+
+
+def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
     """The encode path at full width: encode_blocks_lanes on the card (its
-    launches counted), timed whole; every stream decoded on the card and by
+    launches counted), timed whole; at 30-49 the host entropy route timed
+    beside it and byte-equal to it; every stream decoded on the card and by
     the native decoder; the steps, each synchronised; each kernel's CUDA
     event median and HBM floor; the native host encoder beside it. Emits
     the record and returns it."""
     import torch
     cfg = te.cfg_for_level(level)
-    reset_enc_launches(te)
+    huff = te.huffman_level(level)
+    reset_enc_launches(te, teh)
     streams = te.encode_blocks_lanes(chunks, level)      # device=None: card
     torch.cuda.synchronize()
-    launches = check_enc_launches(te, cfg, f"encode level {level}")
-    e2e_runs = []
-    for _ in range(ENC_REPS):
-        t = time.perf_counter()
-        te.encode_blocks_lanes(chunks, level)
-        e2e_runs.append((time.perf_counter() - t) * 1e3)
+    launches = check_enc_launches(te, teh, cfg, level,
+                                  f"encode level {level}")
+    e2e_runs = e2e_encode_ms(te, chunks, level)
+    host_runs = None
+    if huff:
+        if te.encode_blocks_lanes(chunks, level, entropy="host") != streams:
+            raise AssertionError(f"encode level {level}: the entropy routes "
+                                 "gave other streams")
+        host_runs = e2e_encode_ms(te, chunks, level, entropy="host")
     if tld.decompress_lanes(streams) != chunks:
         raise AssertionError(f"encode level {level}: card decode != input")
     if [runtime.decompress(s, BLOCK) for s in streams] != chunks:
@@ -344,9 +412,45 @@ def encode_level(te, tld, runtime, chunks, level: int, smi: str) -> dict:
     arrs = te.token_arrays(tok, counts)
     steps["d2h_tokens_ms"] = (time.perf_counter() - t) * 1e3
     t = time.perf_counter()
-    again = [bytes([level]) + te.emit_inner(d, *a, level)
-             for d, a in zip(chunks, arrs)]
-    steps["emit_and_assemble_ms"] = (time.perf_counter() - t) * 1e3
+    emitted = [te.emit_streams(d, *a, level) for d, a in zip(chunks, arrs)]
+    steps["emit_ms"] = (time.perf_counter() - t) * 1e3
+    blobs, huf = None, None
+    if huff:
+        cands = te.huf_candidates(emitted)
+        t = time.perf_counter()
+        plan = teh.plan_huf_streams(cands)
+        steps["huf_plan_ms"] = (time.perf_counter() - t) * 1e3
+        steps["of_which_headers_ms"] = huf_header_ms(teh, cands)
+        t = time.perf_counter()
+        hargs = plan.stage("cuda")
+        torch.cuda.synchronize()
+        steps["huf_h2d_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        words, bits, status = teh.huf_pack(**hargs)
+        torch.cuda.synchronize()
+        steps["huf_pack_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        words, bits, status = words.cpu(), bits.cpu(), status.cpu()
+        steps["huf_d2h_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        teh.raise_on_status(status, plan)
+        blobs = dict(zip(cands, teh.finish(plan, words, bits)))
+        steps["huf_finish_ms"] = (time.perf_counter() - t) * 1e3
+        huf = {"candidate_streams": len(cands),
+               "coded_streams": len(plan.coded),
+               "rle_streams": sum(1 for b in plan.blobs
+                                  if b is not None and len(b) == 1),
+               "segments": int(plan.segs.shape[0]),
+               "symbol_bytes": int(plan.data.numel()),
+               "longest_segment": int(plan.segs[:, 1].max()),
+               "packed_bits": int(bits.sum()),
+               "blob_bytes": sum(len(b) for b in plan.blobs if b),
+               "floor_bytes": huf_pack_floor_bytes(plan, bits)}
+    t = time.perf_counter()
+    again = [bytes([level]) + te.assemble_block(d, f, lits, o16, huff, o24,
+                                                blobs)
+             for d, (f, lits, o16, o24) in zip(chunks, emitted)]
+    steps["containers_ms"] = (time.perf_counter() - t) * 1e3
     if again != streams:
         raise AssertionError(f"encode level {level}: the steps gave other "
                              "streams than encode_blocks_lanes")
@@ -359,6 +463,10 @@ def encode_level(te, tld, runtime, chunks, level: int, smi: str) -> dict:
     kernel_ms["parse_tokens"] = cuda_ms(
         lambda: te.parse_tokens(data, lens, maps, pcfg), KERNEL_REPS)
     floors = enc_floor_bytes(te, cfg, len(chunks), tokens)
+    if huff:
+        kernel_ms["huf_pack"] = cuda_ms(lambda: teh.huf_pack(**hargs),
+                                        KERNEL_REPS)
+        floors["huf_pack"] = huf["floor_bytes"]
     bound_ms = {k: floors[k] / HBM_BYTES_PER_S * 1e3 for k in kernel_ms}
     t = time.perf_counter()
     native = [runtime.compress(c, level) for c in chunks]
@@ -368,10 +476,13 @@ def encode_level(te, tld, runtime, chunks, level: int, smi: str) -> dict:
     e2e = statistics.median(e2e_runs)
     rec = {"level": level, "blocks": len(chunks), "bytes": size,
            "compressed_bytes": comp, "ratio": comp / size,
-           "tokens": tokens, "launches": dict(zip(
-               ("match_find", "chain_walk", "parse_tokens"), launches)),
+           "tokens": tokens, "launches": dict(zip(ENC_WRAPPERS, launches)),
            "e2e_ms": e2e, "e2e_runs_ms": e2e_runs,
-           "e2e_gbps": size / e2e / 1e6, "steps": steps,
+           "e2e_gbps": size / e2e / 1e6,
+           "host_entropy_e2e_ms": (statistics.median(host_runs)
+                                   if host_runs else None),
+           "host_entropy_e2e_runs_ms": host_runs, "huf": huf,
+           "steps": steps,
            "kernel_ms": kernel_ms, "hbm_floor_ms": bound_ms,
            "hbm_floor_bytes": {k: floors[k] for k in kernel_ms},
            "native_compressed_bytes": sum(map(len, native)),
@@ -381,31 +492,36 @@ def encode_level(te, tld, runtime, chunks, level: int, smi: str) -> dict:
     return rec
 
 
-def encoder_entry(name, src, line, func, main_level, enc, enc_err,
+def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
                   enc_plain_ms, n_blocks) -> dict:
     """The kernels-line entry of one encoder kernel from the full-size
     encode records `enc` (launches summed over their main-path runs)."""
-    levels = [lv for lv in ENC_LEVELS if name in enc[lv]["kernel_ms"]]
+    levels = [lv for lv in ENC_LEVELS if wrapper in enc[lv]["kernel_ms"]]
+    shape = f"level {main_level}, {n_blocks} blocks x 128 KB"
+    if wrapper == "huf_pack":
+        shape += (f": {enc[main_level]['huf']['coded_streams']} Huff0 "
+                  "streams of their flags and literals")
     return {
         "name": name,
+        "wrapper": wrapper,
         "route": "cuda",
         "source": f"lizard_tpu_torch/csrc/{src}.cu",
-        "replaces": f"lizard_tpu/ops/enc_lanes.py:{line}::{func}",
-        "launches": sum(enc[lv]["launches"][name] for lv in ENC_LEVELS),
-        "max_abs_err": enc_err[name],
+        "replaces": replaces,
+        "launches": sum(enc[lv]["launches"][wrapper] for lv in ENC_LEVELS),
+        "max_abs_err": enc_err[wrapper],
         "tolerance": ENC_TOLERANCE,
-        "matches_plain": enc_err[name] <= ENC_TOLERANCE,
-        "ms": enc[main_level]["kernel_ms"][name],
-        "plain_ms": enc_plain_ms[name][main_level],
-        "bound_ms": enc[main_level]["hbm_floor_ms"][name],
+        "matches_plain": enc_err[wrapper] <= ENC_TOLERANCE,
+        "ms": enc[main_level]["kernel_ms"][wrapper],
+        "plain_ms": enc_plain_ms[wrapper][main_level],
+        "bound_ms": enc[main_level]["hbm_floor_ms"][wrapper],
         "bound_by": "bytes",
         "library_ms": None,
-        "shape": f"level {main_level}, {n_blocks} blocks x 128 KB",
-        "ms_by_level": {str(lv): enc[lv]["kernel_ms"][name]
+        "shape": shape,
+        "ms_by_level": {str(lv): enc[lv]["kernel_ms"][wrapper]
                         for lv in levels},
-        "plain_ms_by_level": {str(lv): enc_plain_ms[name][lv]
+        "plain_ms_by_level": {str(lv): enc_plain_ms[wrapper][lv]
                               for lv in levels},
-        "bound_ms_by_level": {str(lv): enc[lv]["hbm_floor_ms"][name]
+        "bound_ms_by_level": {str(lv): enc[lv]["hbm_floor_ms"][wrapper]
                               for lv in levels},
     }
 
@@ -423,6 +539,7 @@ def main() -> int:
     from lizard_tpu_torch.frame import (compress_frame_fast,
                                         compress_frame_lanes)
     from lizard_tpu_torch.ops import _build
+    from lizard_tpu_torch.ops import enc_huf as teh
     from lizard_tpu_torch.ops import enc_lanes as te
     from lizard_tpu_torch.ops import huf128 as th
     from lizard_tpu_torch.ops import lane_decode as tld
@@ -694,11 +811,11 @@ def main() -> int:
     emit("corruption", raised=raised)
 
     # 9. full-size encode on the card at 11, 21, 35 and 49
-    enc = {level: encode_level(te, tld, runtime, chunks, level, smi)
+    enc = {level: encode_level(te, teh, tld, runtime, chunks, level, smi)
            for level in ENC_LEVELS}
 
     # 10. encoder kernels against plain at full width, each level
-    enc_err = {"match_find": 0, "chain_walk": 0, "parse_tokens": 0}
+    enc_err = dict.fromkeys(ENC_WRAPPERS, 0)
     enc_plain_ms = {k: {} for k in enc_err}
 
     def note(level, rec, full=False):
@@ -709,7 +826,7 @@ def main() -> int:
 
     for level in ENC_LEVELS:
         note(level, encode_against_plain(
-            te, chunks, level, f"level {level}, {len(chunks)} x 128 KB"),
+            te, teh, chunks, level, f"level {level}, {len(chunks)} x 128 KB"),
             full=True)
 
     # 11. encode sweep: every level at ~1 MB on the card, decoded back;
@@ -717,16 +834,17 @@ def main() -> int:
     sweep_chunks = [sweep[i:i + BLOCK] for i in range(0, len(sweep), BLOCK)]
     for level in range(10, 50):
         cfg = te.cfg_for_level(level)
-        reset_enc_launches(te)
+        reset_enc_launches(te, teh)
         streams = te.encode_blocks_lanes(sweep_chunks, level)
         torch.cuda.synchronize()
-        launches = check_enc_launches(te, cfg, f"encode sweep {level}")
+        launches = check_enc_launches(te, teh, cfg, level,
+                                      f"encode sweep {level}")
         if (decompress_lanes(streams) != sweep_chunks
                 or [runtime.decompress(s, BLOCK) for s in streams]
                 != sweep_chunks):
             raise AssertionError(f"encode sweep level {level}: round trip")
         if level in ENC_TIER_LEVELS:
-            note(level, encode_against_plain(te, sweep_chunks, level,
+            note(level, encode_against_plain(te, teh, sweep_chunks, level,
                                              f"encode sweep level {level}"))
         emit("encode_sweep", level=level, bytes=len(sweep),
              compressed_bytes=sum(map(len, streams)), launches=launches,
@@ -738,13 +856,14 @@ def main() -> int:
     edge = [gen(size, seed=size, proba=0.5)
             for size in (0, 1, 20, 21, 22, 4097)]
     edge += [b"\x07" * BLOCK, rng.integers(0, 256, BLOCK, np.uint8).tobytes(),
-             rng.integers(0, 4, BLOCK, np.uint8).tobytes()]
+             rng.integers(0, 4, BLOCK, np.uint8).tobytes(), one_flag_block()]
     for level in (11, 21, 49):
         cfg = te.cfg_for_level(level)
-        reset_enc_launches(te)
+        reset_enc_launches(te, teh)
         streams = te.encode_blocks_lanes(edge, level)
         torch.cuda.synchronize()
-        launches = check_enc_launches(te, cfg, f"edge blocks {level}")
+        launches = check_enc_launches(te, teh, cfg, level,
+                                      f"edge blocks {level}")
         if (decompress_lanes(streams) != edge
                 or [runtime.decompress(s, max(len(d), 1))
                     for s, d in zip(streams, edge)] != edge):
@@ -754,20 +873,29 @@ def main() -> int:
         # against plain at 11 and 49 only: the plain parse of the 4-symbol
         # block takes ~60 s a level
         if level != 21:
-            note(level, encode_against_plain(te, edge, level,
+            note(level, encode_against_plain(te, teh, edge, level,
                                              f"edge blocks level {level}"))
+        gates = huf_gates(streams[7:]) if level == 49 else None
+        if gates is not None and (gates[0] != "stored"
+                                  or "coded" not in gates[1].values()
+                                  or gates[2] != {"flags": "rle",
+                                                  "literals": "raw"}):
+            raise AssertionError(f"edge blocks level 49: Huff0 gates {gates}")
         emit("encode_edge", level=level, sizes=[len(d) for d in edge],
-             compressed=[len(s) for s in streams], launches=launches)
-    reset_enc_launches(te)
-    frame = compress_frame_lanes(far, 21, block_size_id=4)
-    torch.cuda.synchronize()
-    launches = check_enc_launches(te, te.cfg_for_level(21), "frame -21")
-    lz_decode.launches = 0
-    if ltt.decompress_frame(frame) != far or lz_decode.launches < 1:
-        raise AssertionError("the -21 frame compressed on the card did not "
-                             "decode")
-    emit("encode_frame", level=21, block_size_id=4, bytes=len(far),
-         frame_bytes=len(frame), launches=launches)
+             compressed=[len(s) for s in streams], launches=launches,
+             huf_gates=gates)
+    for level in (21, 41):
+        reset_enc_launches(te, teh)
+        frame = compress_frame_lanes(far, level, block_size_id=4)
+        torch.cuda.synchronize()
+        launches = check_enc_launches(te, teh, te.cfg_for_level(level),
+                                      level, f"frame -{level}")
+        lz_decode.launches = 0
+        if ltt.decompress_frame(frame) != far or lz_decode.launches < 1:
+            raise AssertionError(f"the -{level} frame compressed on the card "
+                                 "did not decode")
+        emit("encode_frame", level=level, block_size_id=4, bytes=len(far),
+             frame_bytes=len(frame), launches=launches)
 
     # 13. kernels line
     t10 = timing[MAIN_LEVELS[0]]
@@ -815,10 +943,8 @@ def main() -> int:
         "plain_ms_by_level": {str(lv): huf_plain_ms[lv] for lv in HUF_LEVELS},
         "bound_ms_by_level": {str(lv): huf_timing[lv]["bound_ms"]
                               for lv in HUF_LEVELS},
-    }] + [encoder_entry(name, src, line, func, main_level, enc, enc_err,
-                        enc_plain_ms, len(chunks))
-          for name, src, line, func, main_level in ENC_KERNELS]}),
-          flush=True)
+    }] + [encoder_entry(*k, enc, enc_err, enc_plain_ms, len(chunks))
+          for k in ENC_KERNELS]}), flush=True)
 
     # 14. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -902,6 +1028,55 @@ def _edit_first_huf_blob(stream: bytes, edit) -> bytes:
                     + stream[p + 6 + size:])
         p += 3 + int.from_bytes(stream[p:p + 3], "little")
     raise ValueError("first block has no Huffman-coded stream")
+
+
+def one_flag_block() -> bytes:
+    """A 128 KB block of units of 20 random literal bytes and a 30-byte copy
+    from 5000 or 5003 bytes back, in turn, after 5003 random bytes: every
+    token has a long literal run, a long match and a new offset, so at
+    levels x9 its flags stream (about 2,500 bytes) is one byte value and
+    Huff0 codes it as RLE; its literals are random, so not compressible.
+    At level 49 the random block (stored whole), the 4-symbol block (a
+    stream coded) and this one take every Huff0 gate."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    buf = bytearray(rng.integers(0, 256, 5003, np.uint8).tobytes())
+    i = 0
+    while len(buf) < BLOCK:
+        buf += rng.integers(0, 256, 20, np.uint8).tobytes()
+        p, dist = len(buf), 5000 + 3 * (i & 1)
+        buf += bytes(buf[p - dist + j] for j in range(30))
+        i += 1
+    return bytes(buf[:BLOCK])
+
+
+def huf_gates(streams) -> list:
+    """Per one-block stream: "stored", or the outcome of its flags and
+    literals streams: "coded" (a Huff0 blob), "rle" (a 1-byte blob) or
+    "raw" (sent as it is). A stream under the 1024-byte gate counts as
+    raw. Streams of a block: len, off16, off24, flags, literals; a raw one
+    is a LE24 length and its bytes, a Huffman one a LE24 decoded size, a
+    LE24 blob size and the blob. The header byte's bits 0-4 flag literals,
+    flags, off16, off24, len."""
+    out = []
+    for s in streams:
+        header = s[1]
+        if header & 0x80:
+            out.append("stored")
+            continue
+        p, kinds = 2, {}
+        for bit, name in ((16, "len"), (4, "off16"), (8, "off24"),
+                          (2, "flags"), (1, "literals")):
+            size = int.from_bytes(s[p:p + 3], "little")
+            if header & bit:
+                blob = int.from_bytes(s[p + 3:p + 6], "little")
+                kinds[name] = "rle" if blob == 1 else "coded"
+                p += 6 + blob
+            else:
+                kinds[name] = "raw"
+                p += 3 + size
+        out.append({k: kinds[k] for k in ("flags", "literals")})
+    return out
 
 
 def _set_first_token(stream: bytes, token: int) -> bytes:

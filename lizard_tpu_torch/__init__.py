@@ -9,6 +9,7 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``runtime``            -- ctypes binding over the shared native runtime
 - ``device``             -- the device rule (resolve_device)
 - ``ref.huf``            -- Huff0 weights header and decode tables (host)
+- ``ref.huf_encode``     -- Huff0 code tables and weights headers (host)
 - ``ops.split``          -- host split of streams into a flat block batch
 - ``ops.huf128``         -- Huff0 decode: the CUDA kernel csrc/huf_decode.cu,
                             its host plan, wrapper and plain PyTorch version
@@ -19,15 +20,20 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``ops.enc_lanes``      -- the device encoder: the CUDA kernels
                             csrc/enc_match.cu, csrc/enc_chain.cu and
                             csrc/enc_parse.cu, their wrappers and plain
-                            PyTorch versions, native emission and Huff0
+                            PyTorch versions, native emission, containers
+- ``ops.enc_huf``        -- Huff0 encode: the CUDA kernel csrc/huf_encode.cu,
+                            its host plan, wrapper and plain PyTorch version
 - ``frame`` / ``api``    -- frame container and one-shot entry points
                             (compress(backend="gpu"), compress_frame_lanes)
 
 Every entry point runs on the card unless the caller passes device="cpu".
 Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
 default); entropy="host" decodes the Huffman stage with the native Huff0.
-Compressing with backend="gpu" (levels 10-49) finds matches and parses on
-the card and emits the codewords, and the Huff0 stage, on the host.
+Compressing (``compress``, backend="gpu" by default, levels 10-49) finds
+matches and parses on the card, emits the codewords on the host, and at
+levels 30-49 packs the Huff0 bitstreams of every block on the card
+(entropy="gpu", the default of encode_blocks_lanes and
+compress_frame_lanes; entropy="host" uses the native Huff0).
 """
 
 __version__ = "0.1.0"
@@ -36,4 +42,13 @@ from lizard_tpu_torch.api import (  # noqa: F401
     compress,
     decompress,
     decompress_frame,
+)
+from lizard_tpu_torch.frame import (  # noqa: F401
+    compress_frame_lanes,
+    decompress_frame_lanes,
+)
+from lizard_tpu_torch.ops.enc_huf import huf_compress_batch  # noqa: F401
+from lizard_tpu_torch.ops.enc_lanes import (  # noqa: F401
+    encode_blocks_lanes,
+    encode_streams_lanes,
 )

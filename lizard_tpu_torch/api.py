@@ -1,7 +1,7 @@
 """Top-level one-shot API of the port (the counterpart of lizard_tpu/api.py):
-block-stream compression through the native encoder or the device encoder,
-and block-stream and frame decompression on the card (device=None means
-"cuda"; pass device="cpu" for the plain PyTorch route)."""
+block-stream compression through the device encoder (the default) or the
+native encoder, and block-stream and frame decompression on the card
+(device=None means "cuda"; pass device="cpu" for the plain PyTorch route)."""
 
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError
@@ -12,17 +12,18 @@ from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 
 
 def compress(data: bytes, level: int = LIZARD_DEFAULT_CLEVEL,
-             backend: str = "native", max_out: int | None = None,
+             backend: str = "gpu", max_out: int | None = None,
              device=None) -> bytes:
     """One-shot block-stream compression (Lizard_compress equivalent).
 
+    backend="gpu" (the default): the device encoder (ops/enc_lanes.py) on
+    `device`, the card unless device="cpu" (then the plain PyTorch
+    versions), levels 10-49, Huff0 stage included at 30-49; the
+    counterpart of the JAX package's backend="tpu", byte-identical to it.
     backend="native": the native C++ encoder on the host, all 40 levels,
-    valid streams, not byte-identical to liblizard. backend="gpu": the
-    device encoder (ops/enc_lanes.py) on `device`, the card unless
-    device="cpu", levels 10-49; the counterpart of the JAX package's
-    backend="tpu", byte-identical to it. The bit-exact "ref" encoder waits
-    for the port of the oracle. Raises ValueError when the stream exceeds
-    max_out."""
+    valid streams, not byte-identical to liblizard. The bit-exact "ref"
+    encoder waits for the port of the oracle. Raises ValueError when the
+    stream exceeds max_out."""
     if backend == "native":
         return runtime.compress(data, level, max_out=max_out)
     if backend != "gpu":

@@ -7,7 +7,8 @@ blocks (high bit = stored), endmark, optional xxh32 content checksum.
 `decompress_frame_lanes` decodes every block of a blockIndependent frame as
 one chain of the CUDA LZ kernel (ops/lane_decode.py), after the Huff0
 kernel at levels 30-49 (ops/fuse.py). `compress_frame_lanes` compresses
-every frame block on the card with the device encoder (ops/enc_lanes.py).
+every frame block on the card with the device encoder (ops/enc_lanes.py),
+Huff0 stage included (ops/enc_huf.py).
 """
 
 from lizard_tpu_torch import runtime
@@ -175,17 +176,21 @@ def _frame(header, comps, parts, data, content_checksum) -> bytes:
 def compress_frame_lanes(data: bytes, level: int = 11,
                          block_size_id: int = 0,
                          content_checksum: bool = True,
-                         content_size: bool = False, device=None) -> bytes:
+                         content_size: bool = False, device=None,
+                         entropy: str = "gpu") -> bytes:
     """Frame compression with the device encoder on `device` (the card
     unless device="cpu"): a blockIndependent frame whose blocks' 128 KB
     chunks are compressed in one batch (ops/enc_lanes.py::
-    encode_streams_lanes), levels 10-49. The counterpart of
-    lizard_tpu/frame.py::compress_frame_tpu with engine="lanes"."""
+    encode_streams_lanes), levels 10-49; at 30-49 the Huff0 stage runs on
+    `device` (entropy="gpu", the default) or in the native Huff0 on the host
+    (entropy="host"). The counterpart of lizard_tpu/frame.py::
+    compress_frame_tpu with engine="lanes"."""
     level, block_size, header = _header(level, block_size_id, len(data),
                                         content_checksum, content_size)
     parts = [data[pos:pos + block_size]
              for pos in range(0, len(data), block_size)]
-    comps = encode_streams_lanes(parts, level=level, device=device)
+    comps = encode_streams_lanes(parts, level=level, device=device,
+                                 entropy=entropy)
     return _frame(header, comps, parts, data, content_checksum)
 
 

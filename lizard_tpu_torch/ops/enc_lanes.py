@@ -4,7 +4,7 @@ pipeline and its three Pallas kernels `_p1_kernel`, `_p15_kernel` and
 csrc/enc_parse.cu).
 
 Blocks of up to cfg.n bytes (128 KB at every level) are compressed in three
-device steps and two host steps:
+device steps, then emission, the entropy stage and the containers:
 
 1. `match_find` (B5): per position, the hash-table lookups with their 4-byte
    verify, the probe ladder, the far table (LIZv1 families) and the delta map
@@ -13,8 +13,11 @@ device steps and two host steps:
    the delta map, its winner into map 0;
 3. `parse_tokens` (B7): per block, the serial greedy/lazy parse over the
    candidate maps into (start, length, offset) tokens;
-4. emission of the level's codewords by the native emitters, then
-5. at levels 30-49 the native Huff0 stage and the block container.
+4. emission of the level's codewords by the native emitters (host);
+5. at levels 30-49 the Huff0 stage of every block's flags and literals
+   streams: on the card in one `huf_pack` call for the whole batch
+   (entropy="gpu", ops/enc_huf.py, kernel B8) or by the native Huff0 on the
+   host (entropy="host"); then each block's container.
 
 The contract of each device step is the JAX package's numpy mirror of its
 Pallas kernel (p1_reference, p15_reference, p2_reference): the port is
@@ -52,6 +55,7 @@ from lizard_tpu_torch.format.constants import (
     minimal_huff_gain,
 )
 from lizard_tpu_torch.ops import _build
+from lizard_tpu_torch.ops.enc_huf import huf_compress_batch
 
 SEG = 128                     # positions per segment (one table update)
 HMUL = 2654435761
@@ -671,72 +675,6 @@ def parse_tokens_plain(data, lens, maps, cfg: EncCfg):
         live &= ~over
         cur = torch.where(act, torch.where(found, s + ml, s0 + 1), cur)
     return tok[:, :T], counts.to(torch.int32)
-    mp = maps.to(torch.int64)
-    if cfg.far:
-        mp[:, M - 1] = torch.where(mp[:, M - 1] > 0,
-                                   mp[:, M - 1] + cfg.far_dist - 1, 0)
-    anyc = (mp > 0).any(1)
-    ar = torch.arange(n, device=dev)
-    nxt = torch.where(anyc, ar, n).flip(1).cummin(1).values.flip(1)
-    nxt = torch.cat([nxt, torch.full((B, 1), n, device=dev)], 1)
-    u8 = data.to(torch.int64)
-    lens64 = lens.to(torch.int64)
-    lim = lens64 - LASTLITERALS
-    live = lens64 >= LIZARD_MIN_LENGTH
-    cur = torch.zeros(B, dtype=torch.int64, device=dev)
-    steps = torch.arange(cfg.lazy + 1, device=dev)
-    mids = torch.arange(M, device=dev)[None, :, None]
-    back = torch.arange(SEG, device=dev)
-    rows = torch.arange(B, device=dev)
-    rowsx = rows[:, None, None].expand(B, M, cfg.lazy + 1)
-    limx = lim[:, None, None].expand_as(rowsx)
-    far_m = M - 1 if cfg.far else -1
-    step_no = 0
-    while True:
-        s0 = nxt.gather(1, cur.clamp(max=n)[:, None])[:, 0]
-        act = live & (s0 < n)
-        if step_no % CHECK_EVERY == 0 and not bool(act.any()):
-            break
-        step_no += 1
-        s0 = torch.where(act, s0, 0)
-        seg_end = ((s0 & ~(SEG - 1)) + SEG)[:, None, None]
-        pos = (s0[:, None] + steps).clamp(max=n - 1)            # (B, L+1)
-        posx = pos[:, None, :].expand_as(rowsx)
-        D = mp[rowsx, mids, posx]                               # (B, M, L+1)
-        has = ((D > 0) & (D <= posx) & act[:, None, None]
-               & ((s0 % SEG)[:, None] < SEG - steps)[:, None, :])
-        X = _mismatch(u8, rowsx, posx, D, has, limx)
-        ML = torch.where(X >= limx, limx - posx,
-                         torch.minimum(X - posx + 3, limx - posx))
-        V = torch.where(X >= seg_end, seg_end - posx + 3, ML)
-        if far_m >= 0:
-            has[:, far_m] &= V[:, far_m] >= MM_LONGOFF
-        V = torch.where(has, V, -1)
-        vb = V.max(1).values                                    # (B, L+1)
-        mi = torch.where(V == vb[:, None], mids, M).min(1).values
-        pml = ML.gather(1, mi[:, None])[:, 0]
-        pd = D.gather(1, mi[:, None])[:, 0]
-        v1, ml, d, s = vb[:, 0], pml[:, 0], pd[:, 0], s0
-        found = act & (v1 >= 0)
-        for step in range(1, cfg.lazy + 1):
-            take = found & (vb[:, step] > v1 + (s0 + step - s))
-            s = torch.where(take, s0 + step, s)
-            d = torch.where(take, pd[:, step], d)
-            ml = torch.where(take, pml[:, step], ml)
-            v1 = torch.where(take, vb[:, step], v1)
-        floor = torch.maximum(torch.maximum(cur, d), s & ~(SEG - 1))
-        y = s[:, None] - 1 - back                               # (B, 128)
-        stop = ((y < floor[:, None])
-                | (u8[rows[:, None], y.clamp(min=0)]
-                   != u8[rows[:, None], (y - d[:, None]).clamp(min=0)]))
-        bk = s - torch.where(stop, back, SEG).min(1).values
-        over = found & (counts >= T)            # cannot happen on valid maps
-        slot = torch.where(found & ~over, counts, T)
-        tok[rows, slot] = torch.stack([bk, ml + s - bk, d], 1).to(torch.int32)
-        counts = torch.where(over, -1, counts + (found & ~over))
-        live &= ~over
-        cur = torch.where(act, torch.where(found, s + ml, s0 + 1), cur)
-    return tok[:, :T], counts.to(torch.int32)
 
 
 def token_arrays(tok, counts) -> list[tuple[np.ndarray, ...]]:
@@ -754,16 +692,21 @@ def token_arrays(tok, counts) -> list[tuple[np.ndarray, ...]]:
 
 # ------------------------------------------------ emission and container
 
-def assemble_block(data, flags, lits, off16=b"", huff=False, off24=b""):
+def assemble_block(data, flags, lits, off16=b"", huff=False, off24=b"",
+                   blobs=None):
     """Inner-block container (Lizard_writeBlock + Lizard_writeStream,
     lizard_compress.c:141-250): a header byte of per-stream Huffman bits,
     then the streams len/off16/off24/flags/literals; flags and literals
-    go through the native Huff0 when huff=True and the reference's gain
-    gates pass; a stored block when the total gain is too small."""
+    longer than HUF_MIN_STREAM_LEN are Huffman-coded when huff=True and the
+    reference's gain gates pass; a stored block when the total gain is too
+    small. The Huff0 blob of such a stream is blobs[stream] (a mapping made
+    by huf_compress_batch, None or b"" = not coded) or, with blobs=None, the
+    native Huff0's."""
 
     def write_stream(out, stream, use_huff):
         if use_huff and len(stream) > HUF_MIN_STREAM_LEN:
-            comp = runtime.huf_compress(bytes(stream))
+            comp = (runtime.huf_compress(bytes(stream)) if blobs is None
+                    else blobs[bytes(stream)])
             if comp and minimal_huff_gain(len(comp)) < len(stream):
                 out += len(stream).to_bytes(3, "little")
                 out += len(comp).to_bytes(3, "little")
@@ -787,36 +730,56 @@ def assemble_block(data, flags, lits, off16=b"", huff=False, off24=b""):
     return bytes(body)
 
 
+def emit_streams(d, st, ml, off, level) -> tuple[bytes, bytes, bytes, bytes]:
+    """The level's codewords of one block's token arrays, by the native
+    emitters: (flags, literals, off16, off24)."""
+    if level // 10 in (2, 4):                         # LIZv1 codewords
+        if len(off) and int(np.max(off)) >= 65536:    # the off24 class
+            return runtime.emit_liz_far(d, st, ml, off)
+        return (*runtime.emit_liz(d, st, ml, off), b"")
+    return (*runtime.emit_lz4(d, st, ml, off), b"", b"")   # fastLZ4
+
+
+def huffman_level(level: int) -> bool:
+    """Levels 30-49 Huffman-code the flags and literals streams."""
+    return level // 10 in (3, 4)
+
+
+def huf_candidates(emitted) -> list[bytes]:
+    """The streams of emitted blocks (emit_streams results) that
+    assemble_block Huffman-codes at levels 30-49: flags and literals longer
+    than HUF_MIN_STREAM_LEN."""
+    return [s for e in emitted for s in e[:2] if len(s) > HUF_MIN_STREAM_LEN]
+
+
 def emit_inner(d, st, ml, off, level):
     """Serialize one block's token arrays into the level's codewords (the
-    native emitters) and its container (Huff0 at 30-49). Returns the inner
-    block without the level byte."""
-    fam = level // 10
-    if fam in (2, 4):                                 # LIZv1 codewords
-        if len(off) and int(np.max(off)) >= 65536:    # the off24 class
-            flags, lits, off16, off24 = runtime.emit_liz_far(d, st, ml, off)
-        else:
-            flags, lits, off16 = runtime.emit_liz(d, st, ml, off)
-            off24 = b""
-        return assemble_block(d, flags, lits, off16, huff=(fam == 4),
-                              off24=off24)
-    flags, lits = runtime.emit_lz4(d, st, ml, off)    # fastLZ4 codewords
-    return assemble_block(d, flags, lits, b"", huff=(fam == 3))
+    native emitters) and its container (the native Huff0 at 30-49).
+    Returns the inner block without the level byte."""
+    flags, lits, off16, off24 = emit_streams(d, st, ml, off, level)
+    return assemble_block(d, flags, lits, off16, huffman_level(level), off24)
 
 
 # ------------------------------------------------------------ entry points
 
-def encode_blocks_lanes(blocks, level=10, cfg: EncCfg = None, device=None):
+def encode_blocks_lanes(blocks, level=10, cfg: EncCfg = None, device=None,
+                        entropy: str = "gpu"):
     """Compress blocks of up to cfg.n (128 KB) bytes each on `device` (the
     card unless device="cpu"), GROUP blocks per device batch: pack and copy
     to the device, match_find, chain_walk (chain tiers), parse_tokens, the
-    tokens back to the host, then the native emitters and, at 30-49, the
-    native Huff0 and the container. All four level families 10-49. Returns
-    one stream (level byte + inner block) per block, decodable by liblizard
-    and by this package's decoders."""
+    tokens back to the host, the native emitters, then at 30-49 the Huff0
+    stage of the batch's flags and literals streams, and the containers.
+    entropy="gpu" (the default) codes every candidate stream of a batch in
+    one huf_pack call on `device` (ops/enc_huf.py); entropy="host" codes
+    each with the native Huff0. Both give the same bytes. All four level
+    families 10-49. Returns one stream (level byte + inner block) per block,
+    decodable by liblizard and by this package's decoders."""
+    if entropy not in ("gpu", "host"):
+        raise ValueError(f"entropy must be 'gpu' or 'host', not {entropy!r}")
     if cfg is None:
         cfg = cfg_for_level(level)
     dev = resolve_device(device)
+    huff = huffman_level(level)
     out = []
     for base in range(0, len(blocks), GROUP):
         part = blocks[base:base + GROUP]
@@ -825,15 +788,23 @@ def encode_blocks_lanes(blocks, level=10, cfg: EncCfg = None, device=None):
         if cfg.chain:
             maps = chain_walk(data, lens, maps, cfg)
         toks = token_arrays(*parse_tokens(data, lens, maps, _parse_cfg(cfg)))
-        for d, (st, ml, off) in zip(part, toks):
-            out.append(bytes([level]) + emit_inner(d, st, ml, off, level))
+        emitted = [emit_streams(d, *t, level) for d, t in zip(part, toks)]
+        blobs = None
+        if huff and entropy == "gpu":
+            cands = huf_candidates(emitted)
+            blobs = dict(zip(cands, huf_compress_batch(cands, dev)))
+        for d, (flags, lits, off16, off24) in zip(part, emitted):
+            out.append(bytes([level]) + assemble_block(
+                d, flags, lits, off16, huff, off24, blobs))
     return out
 
 
-def encode_streams_lanes(datas, level=10, cfg: EncCfg = None, device=None):
+def encode_streams_lanes(datas, level=10, cfg: EncCfg = None, device=None,
+                         entropy: str = "gpu"):
     """Compress buffers of any size: each a level byte followed by the inner
     blocks of its cfg.n-byte chunks, compressed independently in one batch
-    (the chunking of lizard_tpu/ops/encode_tpu.py::encode_streams_tpu)."""
+    (the chunking of lizard_tpu/ops/encode_tpu.py::encode_streams_tpu);
+    `entropy` as in encode_blocks_lanes."""
     if cfg is None:
         cfg = cfg_for_level(level)
     chunks, spans = [], []
@@ -841,5 +812,6 @@ def encode_streams_lanes(datas, level=10, cfg: EncCfg = None, device=None):
         s0 = len(chunks)
         chunks += [d[i:i + cfg.n] for i in range(0, len(d), cfg.n)] or [b""]
         spans.append((s0, len(chunks)))
-    inner = [b[1:] for b in encode_blocks_lanes(chunks, level, cfg, device)]
+    inner = [b[1:] for b in encode_blocks_lanes(chunks, level, cfg, device,
+                                                entropy)]
     return [bytes([level]) + b"".join(inner[a:b]) for a, b in spans]

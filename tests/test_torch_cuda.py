@@ -1,6 +1,6 @@
 """The CUDA kernels (csrc/lz_decode.cu, csrc/huf_decode.cu and the device
-encoder's csrc/enc_match.cu, csrc/enc_chain.cu, csrc/enc_parse.cu) against
-their plain PyTorch versions, on the card. Every test here needs an NVIDIA
+encoder's csrc/enc_match.cu, csrc/enc_chain.cu, csrc/enc_parse.cu,
+csrc/huf_encode.cu) against their plain PyTorch versions, on the card. Every test here needs an NVIDIA
 GPU and skips without one.
 
 This file imports neither JAX nor lizard_tpu, so it also runs where JAX is
@@ -17,6 +17,7 @@ import torch
 
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError, HufError
+from lizard_tpu_torch.ops import enc_huf as teh
 from lizard_tpu_torch.ops import enc_lanes as te
 from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
@@ -272,3 +273,76 @@ def test_encoder_kernels_full_geometry(level, card):
 def ltt_compress(data, level, device=None):
     from lizard_tpu_torch import compress
     return compress(data, level, backend="gpu", device=device)
+
+
+def _huf_plan():
+    rng = np.random.default_rng(9)
+    streams = [text_like(60_000, 11), gen(131_072, 5, proba=0.6),
+               gen(30_000, 12, proba=0.7), b"\x42" * 500, text_like(1025, 3),
+               rng.integers(0, 9, 5000, np.uint8).tobytes(),
+               rng.integers(0, 256, 4000, np.uint8).tobytes()]
+    return streams, teh.plan_huf_streams(streams)
+
+
+def test_huf_pack_matches_plain(card):
+    """huf_pack against huf_pack_plain (words, bits, status exactly), and
+    the blobs of huf_compress_batch on the card equal the native Huff0's."""
+    streams, plan = _huf_plan()
+    args = plan.stage(card)
+    before = teh.huf_pack.launches
+    k = teh.huf_pack(**args)
+    torch.cuda.synchronize()
+    assert teh.huf_pack.launches == before + 1
+    p = teh.huf_pack_plain(**args)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert (k[2] == teh.OK).all() and len(plan.coded) == 5
+    blobs = teh.huf_compress_batch(streams)
+    assert [b or b"" for b in blobs] == [runtime.huf_compress(s)
+                                         for s in streams]
+
+
+def test_huf_pack_status_matches_plain(card):
+    """A symbol whose table entry is missing (stream 0), codes too long for
+    the reserved words (stream 1), a row outside its tensors (stream 2,
+    segment 1): the same status, zeroed words and bits as the plain
+    version, and the error names the stream."""
+    _, plan = _huf_plan()
+    tables, segs = plan.tables.clone(), plan.segs.clone()
+    data = plan.data.numpy()
+    first = data[:int(segs[0, 1])]
+    tables[0, int(np.bincount(first).argmax())] = 0
+    tables[1] = torch.where(tables[1] != 0,
+                            (20 << 16) | (tables[1] & 0xFFFF), 0)
+    segs[9, 0] = data.size
+    args = dict(data=plan.data.to(card), segs=segs.to(card),
+                tables=tables.to(card), n_words=plan.n_words)
+    k = teh.huf_pack(**args)
+    p = teh.huf_pack_plain(**args)
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b.cpu())
+    st = k[2].cpu().tolist()
+    assert st[0] == teh.ERR_NO_CODE and st[4:8] == [teh.ERR_OVERFLOW] * 4
+    assert st[9] == teh.ERR_BOUNDS and st[8] == st[10] == teh.OK
+    assert (k[2] == teh.OK).sum() >= 8
+    with pytest.raises(RuntimeError, match="stream 0, segment 0: a symbol"):
+        teh.raise_on_status(k[2], plan)
+
+
+@pytest.mark.parametrize("level", [35, 49])
+def test_encode_entropy_routes_equal(level, card):
+    """encode_blocks_lanes at the level's own geometry: entropy="gpu" (one
+    huf_pack launch) byte-equal to entropy="host"; the streams decode."""
+    rng = np.random.default_rng(level)
+    blocks = [text_like(131_072, level), gen(131_072, level, proba=0.6),
+              rng.integers(0, 9, 131_072, np.uint8).tobytes(), b"",
+              gen(5000, level)]
+    before = teh.huf_pack.launches
+    got = te.encode_blocks_lanes(blocks, level)
+    torch.cuda.synchronize()
+    assert teh.huf_pack.launches == before + 1
+    assert got == te.encode_blocks_lanes(blocks, level, entropy="host")
+    assert any(s[1] & 3 == 3 for s in got if len(s) > 1)
+    assert [runtime.decompress(s, max(len(d), 1))
+            for s, d in zip(got, blocks)] == blocks
+    assert tld.decompress_lanes(got) == blocks

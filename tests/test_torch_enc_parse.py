@@ -194,7 +194,8 @@ def test_device_none_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("rel", ["ops/enc_lanes.py", "runtime.py",
-                                 "frame.py", "api.py"])
+                                 "frame.py", "api.py", "ops/enc_huf.py",
+                                 "ref/huf_encode.py", "__init__.py"])
 def test_encoder_modules_import_no_jax(rel):
     path = os.path.join(ROOT, "lizard_tpu_torch", rel)
     tree = ast.parse(open(path).read(), path)

@@ -12,6 +12,7 @@ import lizard_tpu_torch
 import lizard_tpu_torch.frame as tframe
 from lizard_tpu.utils.datagen import gen, text_like
 from lizard_tpu_torch.errors import CorruptError
+from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.runtime import xxh32
 
 
@@ -72,7 +73,7 @@ def test_malformed_frames_raise():
 def test_api(monkeypatch):
     data = gen(150_000, seed=6)
     for level in (10, 21, 35):
-        comp = lizard_tpu_torch.compress(data, level)
+        comp = lizard_tpu_torch.compress(data, level, backend="native")
         assert lizard_tpu_torch.decompress(comp, device="cpu") == data
         with pytest.raises(CorruptError):
             lizard_tpu_torch.decompress(comp, max_out=1000, device="cpu")
@@ -84,3 +85,28 @@ def test_api(monkeypatch):
         lizard_tpu_torch.decompress(comp)
     with pytest.raises(RuntimeError, match="CUDA"):
         lizard_tpu_torch.decompress_frame(frame)
+
+
+@pytest.fixture
+def one_thread():
+    """The device encoder's plain versions run many small tensor
+    operations: one torch thread, as in tests/test_torch_enc_*.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("level", [11, 35])
+def test_api_compress_defaults_to_the_device_encoder(level, monkeypatch,
+                                                     one_thread):
+    """compress(data, level) is the device encoder: with device="cpu" it
+    equals encode_streams_lanes (the plain versions), and without a card
+    the default device raises."""
+    data = gen(40_000, seed=level, proba=0.6)
+    comp = lizard_tpu_torch.compress(data, level, device="cpu")
+    assert comp == encode_streams_lanes([data], level, device="cpu")[0]
+    assert lizard_tpu_torch.decompress(comp, device="cpu") == data
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lizard_tpu_torch.compress(data, level)
