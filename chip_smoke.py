@@ -50,8 +50,27 @@ on the card, and checks every result against the input bytes:
    against the plain versions at 11 and 49, each Huff0 gate taken at 49
    (RLE, not compressible, stored, coded), and 4 MB-block frames at -21
    and -41 compressed on the card and decoded by the port;
-13. the kernels line (one JSON object per kernel);
-14. the last line: {"ok": true, "device": {...}}.
+13. slot-layout batch decode: decode_batch_pallas (ops/pallas_decode.py,
+   one lz_decode launch) on the full-size batches of levels 10 and 21:
+   every block equals its input and lz_decode's output on the same staged
+   batch; kernel and end-to-end times, the HBM floor;
+14. single-stream decode: decompress_pallas on one 8 MB stream (64
+   chained inner blocks, one chain, so one warp) at levels 10, 21 (off24
+   matches asserted) and 41 (Huff0 in the host split); equal to the input
+   and the native decoder; at 21 lz_decode against lz_decode_plain on that
+   single chain;
+15. batch Huff0 decode: huf_decompress_lanes (ops/lane_huf.py, one
+   huf_decode launch) on the Huff0 blobs of the level-41 batch, a
+   tableLog-12 blob and an RLE blob, blob by blob equal to the native
+   Huff0; huf_decode against huf_decode_plain on that plan;
+16. real files: 16 MB of the Python standard library's files
+   (utils/datagen.py::build_corpus_realfiles) at level 49 in 128 KB
+   blocks, decoded by decompress_lanes whole and as streams 112-128 alone
+   (the batch in which the TPU lane decoder corrupted block 120 on its own
+   machine's files); skipped with a printed reason if the files come
+   short of 16 MB;
+17. the kernels line (one JSON object per kernel);
+18. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -92,6 +111,13 @@ ENC_KERNELS = (
      "lizard_tpu/ops/enc_huf.py:41::_henc_kernel", 35),
 )
 ENC_WRAPPERS = ("match_find", "chain_walk", "parse_tokens", "huf_pack")
+STREAM_BYTES = 8 << 20         # one stream of 64 chained inner blocks
+STREAM_LEVELS = (10, 21, 41)
+STREAM_REPS = 3                # one warp decodes the whole stream: ~0.3 s
+REALFILE_BYTES = 16 << 20
+REALFILE_LEVEL = 49
+REALFILE_PART = (112, 128)     # streams of the batch decoded alone
+REALFILE_BLOCK = 120           # the block the TPU lane decoder corrupted
 
 
 def emit(phase: str, **kv) -> None:
@@ -526,6 +552,262 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
     }
 
 
+def lz_floor_ms(args: dict, decoded: int) -> float:
+    """HBM floor of lz_decode on a staged batch that decodes to `decoded`
+    bytes: its inputs read once, the bytes, block lengths and chain
+    statuses written once."""
+    return (staged_bytes(args) + decoded + 4 * args["blocks"].shape[0]
+            + 4 * args["chains"].shape[0]) / HBM_BYTES_PER_S * 1e3
+
+
+def pallas_batch(tld, tpd, split_streams, level: int, streams, chunks,
+                 smi: str) -> dict:
+    """decode_batch_pallas on a full-size batch of independent streams on
+    the card: exactly one lz_decode launch, every block equal to its input,
+    the slot bytes equal to lz_decode's output on the same staged batch;
+    the kernel's CUDA-event median, the end-to-end time (host bytes to
+    host bytes: split, decode, copy back) and the HBM floor. Emits and
+    returns the record."""
+    import torch
+    batch = split_streams(streams)
+    tld.lz_decode.launches = 0
+    out, block_len = tpd.decode_batch_pallas(batch)      # device=None: card
+    torch.cuda.synchronize()
+    launches = tld.lz_decode.launches
+    if launches != 1:
+        raise AssertionError(f"pallas_batch level {level}: {launches} "
+                             "lz_decode launches, not 1")
+    lens = block_len.cpu().tolist()
+    if lens != [len(c) for c in chunks]:
+        raise AssertionError(f"pallas_batch level {level}: block lengths")
+    host = out.cpu().numpy()
+    for b, c in enumerate(chunks):
+        if host[b * BLOCK:b * BLOCK + len(c)].tobytes() != c:
+            raise AssertionError(f"pallas_batch level {level}: block {b} "
+                                 "!= input")
+    # the same staged batch through lz_decode alone (a comparison launch)
+    args = tld.stage_batch(batch, "cuda")
+    ref, ref_len, ref_status = tld.lz_decode(**args)
+    ref = tpd.to_slots(ref, ref_len, args["chains"])
+    valid = (torch.arange(BLOCK, device="cuda")[None, :]
+             < block_len[:, None]).flatten()
+    if (not torch.equal(ref_len, block_len) or (ref_status != tld.OK).any()
+            or not torch.equal(out[valid], ref[valid])):
+        raise AssertionError(f"pallas_batch level {level}: slots differ "
+                             "from lz_decode's output")
+    runs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        o, _ = tpd.decode_batch_pallas(split_streams(streams))
+        o.cpu()
+        runs.append((time.perf_counter() - t) * 1e3)
+    rec = {"level": level, "streams": len(streams), "blocks": len(chunks),
+           "launches": launches, "equal_to_input": True,
+           "equal_to_lz_decode": True,
+           "kernel_ms": cuda_ms(lambda: tld.lz_decode(**args), KERNEL_REPS),
+           "e2e_ms": statistics.median(runs), "e2e_runs_ms": runs,
+           "hbm_floor_ms": lz_floor_ms(args, sum(lens)), "card": smi}
+    emit("pallas_batch", **rec)
+    return rec
+
+
+def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
+                  data: bytes, smi: str) -> dict:
+    """decompress_pallas on one stream of 64 chained inner blocks (one
+    chain: one warp of lz_decode): exactly one lz_decode launch and, at
+    levels 30-49, no huf_decode launch (Huff0 runs in the host split);
+    equal to the input and to the native decoder; at level 21 off24
+    matches present and lz_decode held against lz_decode_plain on this
+    single chain. Times: decompress_pallas on the host clock, the kernel
+    by CUDA events. Emits and returns the record."""
+    import torch
+    s = runtime.compress(data, level)
+    batch = split_streams([s])
+    if batch.n_blocks != STREAM_BYTES // BLOCK:
+        raise AssertionError(f"pallas_stream level {level}: "
+                             f"{batch.n_blocks} inner blocks")
+    if level == 21 and batch.off24.numel() == 0:
+        raise AssertionError("the 8 MB level-21 stream has no off24 matches")
+    tld.lz_decode.launches = th.huf_decode.launches = 0
+    got = tpd.decompress_pallas(s, len(data))             # device=None: card
+    torch.cuda.synchronize()
+    launches = tld.lz_decode.launches
+    if launches != 1 or th.huf_decode.launches != 0:
+        raise AssertionError(f"pallas_stream level {level}: launches "
+                             f"lz {launches}, huf {th.huf_decode.launches}")
+    if got != data:
+        raise AssertionError(f"pallas_stream level {level}: decode != input")
+    if runtime.decompress(s, len(data)) != data:
+        raise AssertionError(f"pallas_stream level {level}: native decode "
+                             "!= input")
+    runs = []
+    for _ in range(STREAM_REPS):
+        t = time.perf_counter()
+        tpd.decompress_pallas(s, len(data))
+        runs.append((time.perf_counter() - t) * 1e3)
+    args = tld.stage_batch(batch, "cuda")
+    rec = {"level": level, "bytes": len(data), "compressed_bytes": len(s),
+           "inner_blocks": batch.n_blocks, "chains": 1,
+           "off24_bytes": int(batch.off24.numel()), "launches": launches,
+           "e2e_ms": statistics.median(runs), "e2e_runs_ms": runs,
+           "kernel_ms": cuda_ms(lambda: tld.lz_decode(**args), STREAM_REPS),
+           "hbm_floor_ms": lz_floor_ms(args, len(data)), "card": smi}
+    if level == 21:
+        rec["against_plain"] = hold_against_plain(
+            tld, args, f"level 21, one stream of {batch.n_blocks} chained "
+            "inner blocks")
+    emit("pallas_stream", **rec)
+    return rec
+
+
+def fib_blob() -> tuple[bytes, bytes]:
+    """(blob, data): a Huff0 blob of tableLog 12, the construction of
+    tests/test_torch_huf.py::_fib_blob with the port's encoder pieces:
+    Fibonacci counts of 16 symbols give a code tree deeper than 12, cut to
+    12; the segments are packed back to front, each with its end mark."""
+    import numpy as np
+    from lizard_tpu_torch.ref import huf_encode as hr
+    fib = [1, 1]
+    while len(fib) < 16:
+        fib.append(fib[-1] + fib[-2])
+    data = bytes(np.random.default_rng(4).permutation(np.repeat(
+        np.arange(16, dtype=np.uint8), fib)))
+    count, max_sym, _ = hr.fse_count(data, 255)
+    nb, val, log = hr.huf_build_ctable(count, max_sym, 12)
+    if log != 12:
+        raise AssertionError(f"the Fibonacci blob has tableLog {log}")
+    seg = (len(data) + 3) // 4
+    parts = []
+    for i in range(4):
+        bw = hr.BitWriter()
+        for sym in reversed(data[i * seg:(i + 1) * seg]):
+            bw.add(val[sym], nb[sym])
+        parts.append(bw.close())
+    blob = (hr.huf_write_ctable(nb, max_sym, log)
+            + b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
+            + b"".join(parts))
+    return blob, data
+
+
+def lane_huf(th, tlh, runtime, split_into, new_accumulator, streams,
+             smi: str) -> dict:
+    """huf_decompress_lanes on the card on every Huff0 blob of `streams`,
+    a tableLog-12 blob and an RLE blob: exactly one huf_decode launch, each
+    blob equal to the native Huff0's decode. Then, on the host plan of the
+    same blobs: the plan's time (host clock), the kernel's CUDA-event
+    median, the HBM floor, and huf_decode against huf_decode_plain (status
+    and bytes exactly). Emits and returns the record."""
+    import torch
+    blobs = []
+    split_into(streams, new_accumulator(),
+               lambda b, n, k: blobs.append((b, n)) or bytes(n))
+    blob12, data12 = fib_blob()
+    blobs += [(blob12, len(data12)), (b"\x41", 100)]
+    th.huf_decode.launches = 0
+    got = tlh.huf_decompress_lanes(blobs)                 # device=None: card
+    torch.cuda.synchronize()
+    launches = th.huf_decode.launches
+    if launches != 1:
+        raise AssertionError(f"lane_huf: {launches} huf_decode launches")
+    for i, ((b, n), g) in enumerate(zip(blobs, got)):
+        if g != runtime.huf_decompress(b, n):
+            raise AssertionError(f"lane_huf: blob {i} of {len(blobs)} "
+                                 "differs from the native Huff0")
+    if got[-2:] != [data12, b"A" * 100]:
+        raise AssertionError("lane_huf: the tableLog-12 or RLE blob")
+    t = time.perf_counter()
+    plan = th.prepare_huf128(blobs)
+    plan_ms = (time.perf_counter() - t) * 1e3
+    staged = plan.stage("cuda")
+    total = sum(n for _, n in blobs)
+    empty = torch.empty(0, dtype=torch.uint8, device="cuda")
+    runs = []
+    for fn in (th.huf_decode, th.huf_decode_plain):      # comparison launches
+        out = torch.zeros(total, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        status = fn(**staged, flags=out, literals=empty, off16=empty,
+                    off24=empty)
+        torch.cuda.synchronize()
+        runs.append((status, out, (time.perf_counter() - t) * 1e3))
+    (ks, ko, _), (ps, po, plain_ms) = runs
+    if not torch.equal(ks, ps) or (ks != th.OK).any():
+        raise AssertionError("lane_huf: huf status differs from the plain "
+                             "version")
+    err = int((ko.int() - po.int()).abs().max())
+    if err > PLAIN_TOLERANCE:
+        raise AssertionError("lane_huf: huf bytes differ from the plain "
+                             "version")
+    out = torch.zeros(total, dtype=torch.uint8, device="cuda")
+    k_ms = cuda_ms(lambda: th.huf_decode(**staged, flags=out, literals=empty,
+                                         off16=empty, off24=empty),
+                   KERNEL_REPS)
+    read, written = huf_floor_bytes(plan)
+    rec = {"blobs": len(blobs), "coded_blobs": int(plan.table_log.numel()),
+           "segments": int(plan.segs.shape[0]), "decoded_bytes": total,
+           "table_logs": sorted(set(plan.table_log.tolist())),
+           "launches": launches, "equal_to_native": True,
+           "host_plan_ms": plan_ms, "kernel_ms": k_ms,
+           "hbm_floor_ms": (read + written) / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": err, "plain_ms": plain_ms, "card": smi}
+    emit("lane_huf", **rec)
+    return rec
+
+
+def realfiles(tld, th, runtime, decompress_lanes, build_corpus_realfiles,
+              smi: str) -> dict | None:
+    """16 MB of real files at level 49 in 128 KB independent blocks
+    (native encoder), decoded on the card by decompress_lanes as a whole
+    batch and as streams 112-128 alone; every block must equal its input.
+    The TPU lane decoder corrupted block 120 of that sub-batch on the
+    files of its own machine (ROADMAP.md, known fault 1); this machine has
+    other files, so this is a real-file check, not a reproduction. Emits a
+    skip with its reason, and returns None, if the files come short of
+    16 MB."""
+    import torch
+    data = build_corpus_realfiles(REALFILE_BYTES)
+    if data is None or len(data) < REALFILE_BYTES:
+        emit("realfiles", skipped=f"only {len(data or b'')} bytes of real "
+             f"files, not {REALFILE_BYTES}")
+        return None
+    chunks = [data[i:i + BLOCK] for i in range(0, len(data), BLOCK)]
+    t = time.perf_counter()
+    streams = [runtime.compress(c, REALFILE_LEVEL) for c in chunks]
+    compress_ms = (time.perf_counter() - t) * 1e3
+    tld.lz_decode.launches = th.huf_decode.launches = 0
+    whole = decompress_lanes(streams)
+    torch.cuda.synchronize()
+    lo, hi = REALFILE_PART
+    part = decompress_lanes(streams[lo:hi])
+    torch.cuda.synchronize()
+    launches = {"lz_decode": tld.lz_decode.launches,
+                "huf_decode": th.huf_decode.launches}
+    for name, got, first in (("whole batch", whole, 0),
+                             (f"streams {lo}:{hi}", part, lo)):
+        want = chunks[first:first + len(got)]
+        if len(got) != (hi - lo if first else len(chunks)):
+            raise AssertionError(f"realfiles, {name}: {len(got)} blocks")
+        for b, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                raise AssertionError(f"realfiles, {name}: block "
+                                     f"{first + b} != input")
+    if launches["lz_decode"] != 2 or not 1 <= launches["huf_decode"] <= 2:
+        raise AssertionError(f"realfiles: launches {launches}")
+    rec = {"bytes": len(data), "level": REALFILE_LEVEL,
+           "blocks": len(chunks),
+           "compressed_bytes": sum(map(len, streams)),
+           "native_compress_ms": compress_ms, "launches": launches,
+           "sub_batch": [lo, hi],
+           f"block_{REALFILE_BLOCK}": {
+               "bytes": len(part[REALFILE_BLOCK - lo]),
+               "equal_alone_and_in_batch": True},
+           "all_blocks_equal": True,
+           "note": "this machine's files, not the TPU run's corpus",
+           "card": smi}
+    emit("realfiles", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -543,6 +825,8 @@ def main() -> int:
     from lizard_tpu_torch.ops import enc_lanes as te
     from lizard_tpu_torch.ops import huf128 as th
     from lizard_tpu_torch.ops import lane_decode as tld
+    from lizard_tpu_torch.ops import lane_huf as tlh
+    from lizard_tpu_torch.ops import pallas_decode as tpd
     from lizard_tpu_torch.ops.fuse import build_fused_plan
     from lizard_tpu_torch.ops.huf128 import huf_decode, prepare_huf128
     from lizard_tpu_torch.ops.lane_decode import (
@@ -550,7 +834,8 @@ def main() -> int:
     from lizard_tpu_torch.ops.split import (
         STREAMS, new_accumulator, split_into, split_streams)
     from lizard_tpu_torch.ref.huf import huf_read_stats
-    from lizard_tpu_torch.utils.datagen import build_corpus, gen
+    from lizard_tpu_torch.utils.datagen import (
+        build_corpus, build_corpus_realfiles, gen)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -621,12 +906,8 @@ def main() -> int:
         steps["decode_batch_lanes_ms"] = (time.perf_counter() - t) * 1e3
         staged[level] = (streams, args)
         k_ms = cuda_ms(lambda: lz_decode(**args), KERNEL_REPS)
-        read = staged_bytes(args)
-        written = len(corpus) + 4 * args["blocks"].shape[0] \
-            + 4 * args["chains"].shape[0]
-        bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
-        timing[level] = {"ms": k_ms, "bound_ms": bound_ms,
-                         "read_bytes": read, "written_bytes": written}
+        bound_ms = lz_floor_ms(args, len(corpus))
+        timing[level] = {"ms": k_ms, "bound_ms": bound_ms}
         emit("decode", level=level, streams=len(streams),
              compressed_bytes=comp, decoded_bytes=len(corpus),
              launches=launches, kernel_ms=k_ms,
@@ -699,9 +980,7 @@ def main() -> int:
         lz_ms = cuda_ms(lambda: lz_decode(**args), KERNEL_REPS)
         hread, hwritten = huf_floor_bytes(plan)
         huf_bound = (hread + hwritten) / HBM_BYTES_PER_S * 1e3
-        lz_read = staged_bytes(args)
-        lz_bound = (lz_read + len(corpus) + 4 * args["blocks"].shape[0]
-                    + 4 * args["chains"].shape[0]) / HBM_BYTES_PER_S * 1e3
+        lz_bound = lz_floor_ms(args, len(corpus))
         huf_timing[level] = {"ms": huf_ms, "bound_ms": huf_bound}
         timing[level] = {"ms": lz_ms, "bound_ms": lz_bound}
         staged[level] = (streams, args)
@@ -746,6 +1025,7 @@ def main() -> int:
 
     # 6. level sweep, ~1 MB each, default entropy route
     sweep = corpus[:8 * BLOCK]
+    sweep_launches = [0, 0]                     # huf_decode, lz_decode
     for level in SWEEP_LEVELS:
         streams = [runtime.compress(sweep[i:i + BLOCK], level)
                    for i in range(0, len(sweep), BLOCK)]
@@ -757,6 +1037,7 @@ def main() -> int:
                 or (level >= 30) != (launches[0] >= 1)):
             raise AssertionError(f"sweep level {level} failed "
                                  f"(huf, lz launches {launches})")
+        sweep_launches = [a + b for a, b in zip(sweep_launches, launches)]
         huf, rec = both_against_plain(th, tld, streams,
                                       f"sweep level {level}")
         max_err = max(max_err, rec["max_abs_err"])
@@ -769,6 +1050,7 @@ def main() -> int:
     # 7. frames
     a = gen(1_500_000, seed=1, proba=0.5)
     far = (a + gen(1_200_000, seed=2, proba=0.5) + a)[:4 << 20]
+    frame_launches = [0, 0]                     # huf_decode, lz_decode
     for level, bsid, data in ((21, 4, far), (41, 4, far),
                               (10, 1, corpus[:2 << 20])):
         frame = compress_frame_fast(data, level, block_size_id=bsid)
@@ -779,6 +1061,7 @@ def main() -> int:
         if (got != data or launches[1] < 1
                 or (level >= 30) != (launches[0] >= 1)):
             raise AssertionError(f"frame level {level} bsid {bsid} failed")
+        frame_launches = [a + b for a, b in zip(frame_launches, launches)]
         # the kernels' inputs on this path: the frame's compressed blocks,
         # made as compress_frame_fast makes them (stored blocks are copied)
         size = LIZARDF_BLOCK_SIZES[bsid]
@@ -897,15 +1180,52 @@ def main() -> int:
         emit("encode_frame", level=level, block_size_id=4, bytes=len(far),
              frame_bytes=len(frame), launches=launches)
 
-    # 13. kernels line
+    # 13. slot-layout batch decode of the full-size batches
+    pb = {level: pallas_batch(tld, tpd, split_streams, level,
+                              staged[level][0], chunks, smi)
+          for level in MAIN_LEVELS}
+
+    # 14. one 8 MB stream: one chain of 64 inner blocks, one warp
+    ps = {level: pallas_stream(tld, th, tpd, runtime, split_streams, level,
+                               corpus[:STREAM_BYTES], smi)
+          for level in STREAM_LEVELS}
+    max_err = max(max_err, ps[21]["against_plain"]["max_abs_err"])
+
+    # 15. batch Huff0 decode of the level-41 batch's blobs, tableLog 12, RLE
+    lh = lane_huf(th, tlh, runtime, split_into, new_accumulator,
+                  staged[HUF_LEVELS[-1]][0], smi)
+    huf_err = max(huf_err, lh["max_abs_err"])
+
+    # 16. real files at level 49, the whole batch and streams 112-128
+    rf = realfiles(tld, th, runtime, decompress_lanes,
+                   build_corpus_realfiles, smi)
+
+    # 17. kernels line: launches summed over every path's run, counted
+    # from 0 just before it and read just after
+    lz_paths = {"decompress_lanes": main_launches,
+                "sweep": sweep_launches[1],
+                "decompress_frame": frame_launches[1],
+                "decode_batch_pallas": sum(r["launches"]
+                                           for r in pb.values()),
+                "decompress_pallas": sum(r["launches"] for r in ps.values()),
+                "realfiles": rf["launches"]["lz_decode"] if rf else 0}
+    huf_paths = {"decompress_lanes": huf_launches,
+                 "sweep": sweep_launches[0],
+                 "decompress_frame": frame_launches[0],
+                 "huf_decompress_lanes": lh["launches"],
+                 "realfiles": rf["launches"]["huf_decode"] if rf else 0}
     t10 = timing[MAIN_LEVELS[0]]
     h41 = huf_timing[HUF_LEVELS[-1]]
     print(json.dumps({"kernels": [{
         "name": "lz_decode",
         "route": "cuda",
         "source": "lizard_tpu_torch/csrc/lz_decode.cu",
-        "replaces": "lizard_tpu/ops/lane_decode.py:328::_lane_kernel",
-        "launches": main_launches,
+        "replaces": "lizard_tpu/ops/lane_decode.py:328::_lane_kernel + "
+                    "lizard_tpu/ops/pallas_decode.py:171::_lz4_block_kernel"
+                    " + lizard_tpu/ops/pallas_decode.py:304::"
+                    "_liz_block_kernel",
+        "launches": sum(lz_paths.values()),
+        "launches_by_path": lz_paths,
         "max_abs_err": max_err,
         "tolerance": PLAIN_TOLERANCE,
         "matches_plain": max_err <= PLAIN_TOLERANCE,
@@ -920,14 +1240,28 @@ def main() -> int:
         "plain_ms_by_level": {str(lv): plain_ms[lv] for lv in plain_ms},
         "bound_ms_by_level": {str(lv): timing[lv]["bound_ms"]
                               for lv in timing},
+        "ms_by_path": {
+            "decode_batch_pallas": {str(lv): r["kernel_ms"]
+                                    for lv, r in pb.items()},
+            "decompress_pallas": {str(lv): r["kernel_ms"]
+                                  for lv, r in ps.items()}},
+        "plain_ms_by_path": {"decompress_pallas": {
+            "21": ps[21]["against_plain"]["plain_ms"]}},
+        "bound_ms_by_path": {
+            "decode_batch_pallas": {str(lv): r["hbm_floor_ms"]
+                                    for lv, r in pb.items()},
+            "decompress_pallas": {str(lv): r["hbm_floor_ms"]
+                                  for lv, r in ps.items()}},
     }, {
         "name": "huf_decode",
         "route": "cuda",
         "source": "lizard_tpu_torch/csrc/huf_decode.cu",
         "replaces": "lizard_tpu/ops/huf128.py:83::_huf128_kernel + "
                     "lizard_tpu/ops/huf128.py:407::_translate_kernel + "
-                    "lizard_tpu/ops/fuse.py:58::_compact_kernel",
-        "launches": huf_launches,
+                    "lizard_tpu/ops/fuse.py:58::_compact_kernel + "
+                    "lizard_tpu/ops/lane_huf.py:88::_huf_lane_kernel",
+        "launches": sum(huf_paths.values()),
+        "launches_by_path": huf_paths,
         "max_abs_err": huf_err,
         "tolerance": PLAIN_TOLERANCE,
         "matches_plain": huf_err <= PLAIN_TOLERANCE,
@@ -943,10 +1277,13 @@ def main() -> int:
         "plain_ms_by_level": {str(lv): huf_plain_ms[lv] for lv in HUF_LEVELS},
         "bound_ms_by_level": {str(lv): huf_timing[lv]["bound_ms"]
                               for lv in HUF_LEVELS},
+        "ms_by_path": {"huf_decompress_lanes": lh["kernel_ms"]},
+        "plain_ms_by_path": {"huf_decompress_lanes": lh["plain_ms"]},
+        "bound_ms_by_path": {"huf_decompress_lanes": lh["hbm_floor_ms"]},
     }] + [encoder_entry(*k, enc, enc_err, enc_plain_ms, len(chunks))
           for k in ENC_KERNELS]}), flush=True)
 
-    # 14. last line
+    # 18. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

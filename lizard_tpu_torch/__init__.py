@@ -17,6 +17,11 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
                             its wrapper and its plain PyTorch version
 - ``ops.fuse``           -- Huff0 then LZ decode on the device, no host
                             round trip between them (levels 30-49)
+- ``ops.pallas_decode``  -- one stream, or a batch in one output slot per
+                            block, decoded by the LZ kernel
+                            (decompress_pallas, decode_batch_pallas)
+- ``ops.lane_huf``       -- a batch of Huff0 blobs decoded by the Huff0
+                            kernel (huf_decompress_lanes)
 - ``ops.enc_lanes``      -- the device encoder: the CUDA kernels
                             csrc/enc_match.cu, csrc/enc_chain.cu and
                             csrc/enc_parse.cu, their wrappers and plain

@@ -2,7 +2,7 @@
 // written straight into the LZ decoder's staged stream tensors, on an H100
 // (sm_90a).
 //
-// Replaces three Pallas TPU kernels of lizard_tpu/ops. Their contract, not
+// Replaces four Pallas TPU kernels of lizard_tpu/ops. Their contract, not
 // their tiling:
 // - huf128.py::_huf128_kernel (l.83, launched by _huf128_call l.373): the
 //   Huff0 bit decode of many segments, tableLog <= 11, which emits
@@ -14,7 +14,11 @@
 // - fuse.py::_compact_kernel (l.58, _compact_call l.137): rebuilds each
 //   Huffman stream contiguously in the LZ pool from its four scattered
 //   segments. Here the thread of a segment stores its symbols at
-//   dst_off + k of its destination tensor, which is that function.
+//   dst_off + k of its destination tensor, which is that function;
+// - lane_huf.py::_huf_lane_kernel (l.88, _huf_lane_call l.312): the older
+//   Huff0 X1 decode of a batch of blobs (tableLog <= 11, its bitstreams
+//   scheduled onto slots), the same function; its host side is
+//   lizard_tpu_torch/ops/lane_huf.py::huf_decompress_lanes.
 //
 // What bounds it on this card: each segment is a serial chain of dependent
 // table lookups (a symbol's bit position depends on the previous symbol's

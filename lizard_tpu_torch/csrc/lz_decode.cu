@@ -2,9 +2,12 @@
 // families (fastLZ4 and LIZv1), on an H100 (sm_90a).
 //
 // Replaces lizard_tpu/ops/lane_decode.py::_lane_kernel (the Pallas TPU
-// kernel launched by _lane_call). Its contract, not its tiling: the
-// post-entropy streams (flags, literals, off16, off24) of a batch of inner
-// blocks, grouped into chains (the consecutive inner blocks of one
+// kernel launched by _lane_call), and the block decoders
+// lizard_tpu/ops/pallas_decode.py::_lz4_block_kernel (l.171) and
+// _liz_block_kernel (l.304), whose host side is
+// lizard_tpu_torch/ops/pallas_decode.py. Their contract, not their tiling:
+// the post-entropy streams (flags, literals, off16, off24) of a batch of
+// inner blocks, grouped into chains (the consecutive inner blocks of one
 // compressed stream, which share one LZ77 window), decode to each chain's
 // bytes, each block's decoded length and a per-chain status.
 //

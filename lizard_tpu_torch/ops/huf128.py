@@ -129,9 +129,9 @@ def prepare_huf128(blobs, dests=None, names=None) -> HufPlan:
         off = 6
         for k, (ln, n_out) in enumerate(zip(lens, sizes)):
             if ln == 0:
-                raise HufError(f"{names[i]}: empty bitstream")
+                raise HufError(f"{names[i]}, segment {k}: empty bitstream")
             if body[off + ln - 1] == 0:
-                raise HufError(f"{names[i]}: missing end mark")
+                raise HufError(f"{names[i]}, segment {k}: missing end mark")
             rows.append((cursor + off - 6, ln, kind, dst + k * seg, n_out,
                          len(tables)))
             off += ln

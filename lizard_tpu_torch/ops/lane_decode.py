@@ -324,18 +324,24 @@ def _decode_block(host, row, family, literals, out, base, op, bend):
     return put_literals(op, lp, iend - lp)
 
 
-def read_blocks(batch: BlockBatch, args: dict, out, block_len,
-                status) -> list[bytes]:
-    """The decoded bytes of every block of an lz_decode result (one copy
-    back to the host), in batch order. Raises CorruptError on a corrupt
-    chain. `args` is the staged batch the result came from."""
-    chains = args["chains"].cpu()
+def raise_on_status(batch: BlockBatch, chains, status) -> None:
+    """Raise CorruptError naming the stream of the first corrupt chain of
+    an lz_decode result."""
     status = status.cpu()
     bad = torch.nonzero(status != OK).flatten()
     if bad.numel():
         c = int(bad[0])
         sid = int(batch.stream_id[int(chains[c, 0])])
         raise CorruptError(f"stream {sid}: {STATUS_TEXT[int(status[c])]}")
+
+
+def read_blocks(batch: BlockBatch, args: dict, out, block_len,
+                status) -> list[bytes]:
+    """The decoded bytes of every block of an lz_decode result (one copy
+    back to the host), in batch order. Raises CorruptError on a corrupt
+    chain. `args` is the staged batch the result came from."""
+    chains = args["chains"].cpu()
+    raise_on_status(batch, chains, status)
     lens = block_len.cpu().tolist()
     data = out.cpu().numpy()
     blocks = []

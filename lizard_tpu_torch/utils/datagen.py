@@ -1,11 +1,14 @@
 """Deterministic compressible-data generator (a copy of
-lizard_tpu/utils/datagen.py) and the decode benchmark's corpus (a copy of
-bench.py::build_corpus), so that the port makes the same bytes from the same
-seeds without importing the JAX package.
+lizard_tpu/utils/datagen.py) and the decode benchmark's corpora (copies of
+bench.py::build_corpus and build_corpus_realfiles), so that the port makes
+the same bytes from the same seeds without importing the JAX package.
 
 Equivalent in role to the reference's programs/datagen.c (RDG): seeded,
 tunable redundancy, skewed literal distribution. Vectorized (numpy) so
 multi-MB corpora are cheap. Not bit-identical to RDG."""
+
+import os
+import sysconfig
 
 import numpy as np
 
@@ -75,3 +78,32 @@ def build_corpus(n_bytes: int) -> bytes:
         parts.append(kinds[seed % len(kinds)](seed))
         seed += 1
     return b"".join(parts)[:n_bytes]
+
+
+def build_corpus_realfiles(n_bytes: int, roots=None) -> bytes | None:
+    """The benchmark's real-file corpus (bench.py::build_corpus_realfiles):
+    a deterministic concatenation (sorted walk, tar spirit) of the files
+    under `roots`, by default the Python standard library's sources (real
+    code and text), cut at n_bytes. Files under `__pycache__` count too,
+    as in bench.py, whose pruning of them runs after sorted() has walked
+    the whole tree and so prunes nothing. None when no root exists or
+    holds a file; shorter than n_bytes when the roots hold less."""
+    if roots is None:
+        roots = [sysconfig.get_paths()["stdlib"]]
+    parts, total = [], 0
+    for root in roots:
+        if not os.path.isdir(root):
+            continue
+        for dirpath, _, filenames in sorted(os.walk(root)):
+            for fn in sorted(filenames):
+                try:
+                    with open(os.path.join(dirpath, fn), "rb") as f:
+                        b = f.read()
+                except OSError:
+                    continue
+                parts.append(b)
+                total += len(b)
+                if total >= n_bytes:
+                    return b"".join(parts)[:n_bytes]
+    data = b"".join(parts)
+    return data if data else None

@@ -1,7 +1,8 @@
 """The CUDA kernels (csrc/lz_decode.cu, csrc/huf_decode.cu and the device
 encoder's csrc/enc_match.cu, csrc/enc_chain.cu, csrc/enc_parse.cu,
-csrc/huf_encode.cu) against their plain PyTorch versions, on the card. Every test here needs an NVIDIA
-GPU and skips without one.
+csrc/huf_encode.cu) against their plain PyTorch versions, on the card, on
+every path that launches them (ops/pallas_decode.py and ops/lane_huf.py
+included). Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor lizard_tpu, so it also runs where JAX is
 not installed; tests/conftest.py imports JAX, so run it there with
@@ -21,8 +22,11 @@ from lizard_tpu_torch.ops import enc_huf as teh
 from lizard_tpu_torch.ops import enc_lanes as te
 from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
+from lizard_tpu_torch.ops import lane_huf as tlh
+from lizard_tpu_torch.ops import pallas_decode as tpd
 from lizard_tpu_torch.ops.fuse import build_fused_plan
-from lizard_tpu_torch.ops.split import STREAMS, split_streams
+from lizard_tpu_torch.ops.split import (
+    STREAMS, new_accumulator, split_into, split_streams)
 from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
 
@@ -184,6 +188,57 @@ def test_huf_kernel_tablelog_12_and_corrupt_status(card):
     assert th.huf_decompress_128(blobs[:1]) == [data]
     with pytest.raises(HufError, match="blob 1, segment 0"):
         th.huf_decompress_128(blobs)
+
+
+@pytest.mark.parametrize("level", [10, 21])
+def test_pallas_decode_matches_plain(level, card):
+    """decode_batch_pallas on the card (one lz_decode launch) against its
+    plain route (device="cpu"): a multi-stream batch, and one 2 MB stream
+    (a chain of 16 inner blocks, off24 matches at -21)."""
+    a = gen(600_000, seed=1, proba=0.5)
+    chain = (a + gen(900_000, seed=level, proba=0.5) + a)[:2 << 20]
+    datas = [gen(300_000, seed=level), text_like(131072, seed=1),
+             b"\x00" * 5000, b"q", gen(200_000, seed=2, proba=0.7)]
+    for parts in (datas, [chain]):
+        batch = split_streams([runtime.compress(d, level) for d in parts])
+        before = tld.lz_decode.launches
+        out, lens = tpd.decode_batch_pallas(batch)
+        torch.cuda.synchronize()
+        assert tld.lz_decode.launches == before + 1
+        p_out, p_lens = tpd.decode_batch_pallas(batch, device="cpu")
+        assert torch.equal(lens.cpu(), p_lens)
+        k, p = out.cpu().numpy(), p_out.numpy()
+        got = [bytes(k[b * 131072:b * 131072 + n])
+               for b, n in enumerate(p_lens.tolist())]
+        assert got == [bytes(p[b * 131072:b * 131072 + n])
+                       for b, n in enumerate(p_lens.tolist())]
+        assert [b"".join(g for g, sid in zip(got, batch.stream_id.tolist())
+                         if sid == i) for i in range(len(parts))] == parts
+    assert batch.n_blocks == 16 and (level < 20 or batch.off24.numel() > 0)
+    s = runtime.compress(chain, level)
+    assert tpd.decompress_pallas(s, len(chain)) == chain
+
+
+def test_lane_huf_matches_huf128_and_native(card):
+    """huf_decompress_lanes on the card (one huf_decode launch) on the
+    Huff0 blobs of -41 streams, a tableLog-12 blob and an RLE blob: equal
+    to huf_decompress_128, to its plain route and to the native Huff0."""
+    datas = [gen(131072, seed=41, proba=0.6), text_like(300_000, seed=3)]
+    blobs = []
+    split_into([runtime.compress(d, 41) for d in datas], new_accumulator(),
+               lambda b, n, k: blobs.append((b, n)) or bytes(n))
+    rng = torch.Generator().manual_seed(6)
+    data12 = bytes((12 - torch.multinomial(
+        torch.tensor([2.0 ** -k for k in range(13)]), 30_000, True,
+        generator=rng)).tolist())
+    blobs += [(_tablelog12_blob(data12), len(data12)), (b"\x41", 100)]
+    before = th.huf_decode.launches
+    got = tlh.huf_decompress_lanes(blobs)
+    assert th.huf_decode.launches == before + 1
+    assert got == th.huf_decompress_128(blobs)
+    assert got == tlh.huf_decompress_lanes(blobs, device="cpu")
+    assert got[:-1] == [runtime.huf_decompress(b, n) for b, n in blobs[:-1]]
+    assert got[-2:] == [data12, b"A" * 100] and len(blobs) >= 6
 
 
 # ------------------------------------------------------- device encoder

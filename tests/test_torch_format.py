@@ -28,7 +28,8 @@ PKG = os.path.join(ROOT, "lizard_tpu_torch")
 def test_import_pulls_in_no_jax():
     code = ("import sys, lizard_tpu_torch, lizard_tpu_torch.frame, "
             "lizard_tpu_torch.ops.lane_decode, lizard_tpu_torch.ops.fuse, "
-            "lizard_tpu_torch.ops.enc_lanes; "
+            "lizard_tpu_torch.ops.enc_lanes, lizard_tpu_torch.ops.lane_huf, "
+            "lizard_tpu_torch.ops.pallas_decode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lizard_tpu')]; print(bad)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -111,3 +112,24 @@ def test_datagen_and_corpus_equal_reference():
     import bench
     n = (8 << 20) + 12345      # three 4 MB parts, cut
     assert tgen.build_corpus(n) == bench.build_corpus(n)
+
+
+def test_realfiles_corpus_equals_reference(monkeypatch, tmp_path):
+    import sysconfig
+
+    import bench
+    stdlib = sysconfig.get_paths()["stdlib"]
+    monkeypatch.setenv("BENCH_REALFILES_DIR", stdlib)
+    n = (2 << 20) + 777
+    got = tgen.build_corpus_realfiles(n)
+    assert len(got) == n
+    assert got == bench.build_corpus_realfiles(n)
+    (tmp_path / "b").mkdir()
+    (tmp_path / "b" / "y").write_bytes(b"yy")
+    (tmp_path / "a").write_bytes(b"x")
+    (tmp_path / "__pycache__").mkdir()
+    (tmp_path / "__pycache__" / "z").write_bytes(b"z")
+    monkeypatch.setenv("BENCH_REALFILES_DIR", str(tmp_path))
+    assert tgen.build_corpus_realfiles(99, [str(tmp_path)]) == b"xzyy" \
+        == bench.build_corpus_realfiles(99)
+    assert tgen.build_corpus_realfiles(9, [str(tmp_path / "none")]) is None

@@ -287,7 +287,8 @@ def test_plan_and_row_checks():
 
 
 NEW_MODULES = ["device.py", "ref/__init__.py", "ref/huf.py",
-               "ops/huf128.py", "ops/fuse.py"]
+               "ops/huf128.py", "ops/fuse.py", "ops/lane_huf.py",
+               "ops/pallas_decode.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
