@@ -13,7 +13,10 @@ on the card, and checks every result against the input bytes:
 3. full-size decode: the 32 MB corpus of bench.py::build_corpus in 128 KB
    independent blocks, compressed at levels 10 and 21, decoded by
    decompress_lanes on the card (lz_decode); kernel-only time (CUDA
-   events, median), end-to-end time, and the HBM floor;
+   events, median, L2 warm), the kernel launches of one call (counted
+   by the wrapper), the deferred share (bytes of the matches
+   that pass 1 deferred / decoded bytes) and the most pointer-jumping
+   rounds of a block in pass 2, end-to-end time, and the HBM floor;
 4. Huffman full-size decode: the same corpus at levels 35 and 41, decoded
    by decompress_lanes with the default entropy route (huf_decode then
    lz_decode, no host round trip between them); both kernels' times and
@@ -55,10 +58,11 @@ on the card, and checks every result against the input bytes:
    every block equals its input and lz_decode's output on the same staged
    batch; kernel and end-to-end times, the HBM floor;
 14. single-stream decode: decompress_pallas on one 8 MB stream (64
-   chained inner blocks, one chain, so one warp) at levels 10, 21 (off24
-   matches asserted) and 41 (Huff0 in the host split); equal to the input
-   and the native decoder; at 21 lz_decode against lz_decode_plain on that
-   single chain;
+   chained inner blocks, one chain: 64 CTAs in pass 1, the cross-block
+   matches deferred to pass 2) at levels 10, 21 (off24 matches asserted)
+   and 41 (Huff0 in the host split); equal to the input and the native
+   decoder; at 21 lz_decode against lz_decode_plain on that single chain;
+   13 and 14 report lz_decode as phase 3 does;
 15. batch Huff0 decode: huf_decompress_lanes (ops/lane_huf.py, one
    huf_decode launch) on the Huff0 blobs of the level-41 batch, a
    tableLog-12 blob and an RLE blob, blob by blob equal to the native
@@ -69,8 +73,13 @@ on the card, and checks every result against the input bytes:
    (the batch in which the TPU lane decoder corrupted block 120 on its own
    machine's files); skipped with a printed reason if the files come
    short of 16 MB;
-17. the kernels line (one JSON object per kernel);
-18. the last line: {"ok": true, "device": {...}}.
+17. linked frame: the 32 MB corpus compressed at level 21 by the native
+   encoder as one stream, cut at inner-block boundaries into 4 MB frame
+   blocks of a linked frame (frame.linked_frame), decoded by
+   decompress_frame on the card (one chain of 256 inner blocks, one
+   lz_decode call), equal to the input and to the native stream decode;
+18. the kernels line (one JSON object per kernel);
+19. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -113,7 +122,9 @@ ENC_KERNELS = (
 ENC_WRAPPERS = ("match_find", "chain_walk", "parse_tokens", "huf_pack")
 STREAM_BYTES = 8 << 20         # one stream of 64 chained inner blocks
 STREAM_LEVELS = (10, 21, 41)
-STREAM_REPS = 3                # one warp decodes the whole stream: ~0.3 s
+STREAM_REPS = 3
+LINKED_LEVEL = 21
+LINKED_BSID = 4                # 4 MB frame blocks: 32 inner blocks each
 REALFILE_BYTES = 16 << 20
 REALFILE_LEVEL = 49
 REALFILE_PART = (112, 128)     # streams of the batch decoded alone
@@ -124,14 +135,17 @@ def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, flush=None) -> float:
     """Median milliseconds of fn() over `reps` runs, timed by CUDA events
-    (two warm-up runs first)."""
+    (two warm-up runs first). With `flush`, a device buffer larger than
+    the L2, it is written before every run, outside the timed span."""
     import torch
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -140,6 +154,14 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def e2e_ms(decompress_lanes, streams, reps: int = 5) -> list[float]:
@@ -560,6 +582,28 @@ def lz_floor_ms(args: dict, decoded: int) -> float:
             + 4 * args["chains"].shape[0]) / HBM_BYTES_PER_S * 1e3
 
 
+def lz_profile(tld, args: dict, decoded: int, reps: int) -> dict:
+    """lz_decode on a staged batch: the kernel's CUDA-event median (L2
+    warm: the inputs stay in L2 between repetitions, as in every earlier
+    run of this script), the kernel launches of one call (counted by the
+    wrapper), pass 1's deferred copies (their count and bytes, and the
+    deferred share: deferred bytes / decoded bytes) and the most
+    pointer-jumping rounds of a block in pass 2 (jump; 0 when pass 2 did
+    not run)."""
+    tld.lz_decode.kernel_launches = 0
+    _, _, status, meta = tld.lz_decode_meta(**args)
+    per_call = tld.lz_decode.kernel_launches
+    if (status != tld.OK).any():
+        raise AssertionError("lz_decode_meta: a chain did not decode")
+    deferred = int(meta[:, tld.META_DEFERRED_BYTES].sum())
+    return {"kernel_ms": cuda_ms(lambda: tld.lz_decode(**args), reps),
+            "l2": "warm",
+            "kernel_launches_per_call": per_call,
+            "deferred_copies": int(meta[:, tld.META_DEFERRED].sum()),
+            "deferred_bytes": deferred, "deferred_share": deferred / decoded,
+            "jump_rounds_max": int(meta[:, tld.META_ROUNDS].max())}
+
+
 def pallas_batch(tld, tpd, split_streams, level: int, streams, chunks,
                  smi: str) -> dict:
     """decode_batch_pallas on a full-size batch of independent streams on
@@ -570,10 +614,11 @@ def pallas_batch(tld, tpd, split_streams, level: int, streams, chunks,
     returns the record."""
     import torch
     batch = split_streams(streams)
-    tld.lz_decode.launches = 0
+    tld.lz_decode.launches = tld.lz_decode.kernel_launches = 0
     out, block_len = tpd.decode_batch_pallas(batch)      # device=None: card
     torch.cuda.synchronize()
     launches = tld.lz_decode.launches
+    kernel_launches = tld.lz_decode.kernel_launches
     if launches != 1:
         raise AssertionError(f"pallas_batch level {level}: {launches} "
                              "lz_decode launches, not 1")
@@ -602,9 +647,10 @@ def pallas_batch(tld, tpd, split_streams, level: int, streams, chunks,
         o.cpu()
         runs.append((time.perf_counter() - t) * 1e3)
     rec = {"level": level, "streams": len(streams), "blocks": len(chunks),
-           "launches": launches, "equal_to_input": True,
+           "launches": launches, "kernel_launches": kernel_launches,
+           "equal_to_input": True,
            "equal_to_lz_decode": True,
-           "kernel_ms": cuda_ms(lambda: tld.lz_decode(**args), KERNEL_REPS),
+           **lz_profile(tld, args, sum(lens), KERNEL_REPS),
            "e2e_ms": statistics.median(runs), "e2e_runs_ms": runs,
            "hbm_floor_ms": lz_floor_ms(args, sum(lens)), "card": smi}
     emit("pallas_batch", **rec)
@@ -614,7 +660,7 @@ def pallas_batch(tld, tpd, split_streams, level: int, streams, chunks,
 def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
                   data: bytes, smi: str) -> dict:
     """decompress_pallas on one stream of 64 chained inner blocks (one
-    chain: one warp of lz_decode): exactly one lz_decode launch and, at
+    chain: 64 CTAs of lz_decode's pass 1): exactly one lz_decode call and, at
     levels 30-49, no huf_decode launch (Huff0 runs in the host split);
     equal to the input and to the native decoder; at level 21 off24
     matches present and lz_decode held against lz_decode_plain on this
@@ -629,9 +675,11 @@ def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
     if level == 21 and batch.off24.numel() == 0:
         raise AssertionError("the 8 MB level-21 stream has no off24 matches")
     tld.lz_decode.launches = th.huf_decode.launches = 0
+    tld.lz_decode.kernel_launches = 0
     got = tpd.decompress_pallas(s, len(data))             # device=None: card
     torch.cuda.synchronize()
     launches = tld.lz_decode.launches
+    kernel_launches = tld.lz_decode.kernel_launches
     if launches != 1 or th.huf_decode.launches != 0:
         raise AssertionError(f"pallas_stream level {level}: launches "
                              f"lz {launches}, huf {th.huf_decode.launches}")
@@ -649,8 +697,9 @@ def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
     rec = {"level": level, "bytes": len(data), "compressed_bytes": len(s),
            "inner_blocks": batch.n_blocks, "chains": 1,
            "off24_bytes": int(batch.off24.numel()), "launches": launches,
+           "kernel_launches": kernel_launches,
            "e2e_ms": statistics.median(runs), "e2e_runs_ms": runs,
-           "kernel_ms": cuda_ms(lambda: tld.lz_decode(**args), STREAM_REPS),
+           **lz_profile(tld, args, len(data), STREAM_REPS),
            "hbm_floor_ms": lz_floor_ms(args, len(data)), "card": smi}
     if level == 21:
         rec["against_plain"] = hold_against_plain(
@@ -775,13 +824,15 @@ def realfiles(tld, th, runtime, decompress_lanes, build_corpus_realfiles,
     streams = [runtime.compress(c, REALFILE_LEVEL) for c in chunks]
     compress_ms = (time.perf_counter() - t) * 1e3
     tld.lz_decode.launches = th.huf_decode.launches = 0
+    tld.lz_decode.kernel_launches = 0
     whole = decompress_lanes(streams)
     torch.cuda.synchronize()
     lo, hi = REALFILE_PART
     part = decompress_lanes(streams[lo:hi])
     torch.cuda.synchronize()
     launches = {"lz_decode": tld.lz_decode.launches,
-                "huf_decode": th.huf_decode.launches}
+                "huf_decode": th.huf_decode.launches,
+                "lz_decode_kernels": tld.lz_decode.kernel_launches}
     for name, got, first in (("whole batch", whole, 0),
                              (f"streams {lo}:{hi}", part, lo)):
         want = chunks[first:first + len(got)]
@@ -805,6 +856,56 @@ def realfiles(tld, th, runtime, decompress_lanes, build_corpus_realfiles,
            "note": "this machine's files, not the TPU run's corpus",
            "card": smi}
     emit("realfiles", **rec)
+    return rec
+
+
+def linked(tld, runtime, corpus: bytes, smi: str) -> dict:
+    """A linked frame of the corpus, made without encoding anew: the
+    native encoder's level-LINKED_LEVEL stream of the whole corpus cut at
+    inner-block boundaries into frame blocks of 4 MB, each with the level
+    byte, plus a content checksum (frame.linked_frame). decompress_frame on
+    the card: exactly one lz_decode call (one chain of every inner block),
+    equal to the input and to the native decode of the stream. Times:
+    decompress_frame on the host clock, the kernel (lz_profile) on the
+    frame's staged batch. Emits and returns the record."""
+    import torch
+    from lizard_tpu_torch import frame as tframe
+    from lizard_tpu_torch.ops.split import split_streams
+    s = runtime.compress(corpus, LINKED_LEVEL)
+    fr = tframe.linked_frame(s, corpus, LINKED_BSID)
+    info = tframe.parse_frame_header(fr)
+    blocks = tframe._frame_blocks(fr, info.header_size)[0]
+    if not info.block_linked or len(blocks) != len(corpus) >> 22:
+        raise AssertionError("linked frame: not a linked frame of 4 MB "
+                             "blocks")
+    tld.lz_decode.launches = tld.lz_decode.kernel_launches = 0
+    got = tframe.decompress_frame(fr)                     # device=None: card
+    torch.cuda.synchronize()
+    launches = tld.lz_decode.launches
+    kernel_launches = tld.lz_decode.kernel_launches
+    if launches != 1:
+        raise AssertionError(f"linked frame: {launches} lz_decode calls")
+    if got != corpus or runtime.decompress(s, len(corpus)) != corpus:
+        raise AssertionError("linked frame: decode != input")
+    runs = []
+    for _ in range(STREAM_REPS):
+        t = time.perf_counter()
+        tframe.decompress_frame(fr)
+        runs.append((time.perf_counter() - t) * 1e3)
+    # the frame's batch: every frame block's inner blocks in one chain,
+    # as decompress_frame stages it
+    batch = split_streams([s])
+    args = tld.stage_batch(batch, "cuda")
+    rec = {"level": LINKED_LEVEL, "block_size_id": LINKED_BSID,
+           "bytes": len(corpus), "frame_bytes": len(fr),
+           "frame_blocks": len(blocks), "inner_blocks": batch.n_blocks,
+           "chains": 1, "off24_bytes": int(batch.off24.numel()),
+           "launches": launches, "kernel_launches": kernel_launches,
+           "equal_to_input": True, "equal_to_native": True,
+           "e2e_ms": statistics.median(runs), "e2e_runs_ms": runs,
+           **lz_profile(tld, args, len(corpus), STREAM_REPS),
+           "hbm_floor_ms": lz_floor_ms(args, len(corpus)), "card": smi}
+    emit("linked_frame", **rec)
     return rec
 
 
@@ -840,10 +941,7 @@ def main() -> int:
     # 1. device
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     emit("device", kind=kind, count=count, torch=torch.__version__,
          cuda=torch.version.cuda)
     print(smi, flush=True)
@@ -866,16 +964,18 @@ def main() -> int:
     # 3. full-size decode at levels 10 and 21
     corpus = build_corpus(CORPUS_BYTES)
     chunks = [corpus[i:i + BLOCK] for i in range(0, len(corpus), BLOCK)]
-    main_launches = 0
+    main_launches = main_kernel_launches = 0
     timing = {}
+    deferred = {}
     staged = {}
     for level in MAIN_LEVELS:
         streams = [runtime.compress(c, level) for c in chunks]
         comp = sum(map(len, streams))
-        lz_decode.launches = 0
+        lz_decode.launches = lz_decode.kernel_launches = 0
         outs = decompress_lanes(streams)          # the card: device=None
         torch.cuda.synchronize()
         launches = lz_decode.launches
+        main_kernel_launches += lz_decode.kernel_launches
         if b"".join(outs) != corpus:
             raise AssertionError(f"level {level}: decode != corpus")
         if launches < 1:
@@ -905,12 +1005,14 @@ def main() -> int:
         decode_batch_lanes(batch)
         steps["decode_batch_lanes_ms"] = (time.perf_counter() - t) * 1e3
         staged[level] = (streams, args)
-        k_ms = cuda_ms(lambda: lz_decode(**args), KERNEL_REPS)
+        prof = lz_profile(tld, args, len(corpus), KERNEL_REPS)
+        k_ms = prof.pop("kernel_ms")
         bound_ms = lz_floor_ms(args, len(corpus))
         timing[level] = {"ms": k_ms, "bound_ms": bound_ms}
+        deferred[level] = prof["deferred_share"]
         emit("decode", level=level, streams=len(streams),
              compressed_bytes=comp, decoded_bytes=len(corpus),
-             launches=launches, kernel_ms=k_ms,
+             launches=launches, kernel_ms=k_ms, **prof,
              kernel_gbps=len(corpus) / k_ms / 1e6,
              e2e_ms=e2e_s * 1e3, e2e_gbps=len(corpus) / e2e_s / 1e9,
              e2e_runs_ms=e2e_runs, hbm_floor_ms=bound_ms, steps=steps,
@@ -928,9 +1030,11 @@ def main() -> int:
         streams = [runtime.compress(c, level) for c in chunks]
         comp = sum(map(len, streams))
         huf_decode.launches = lz_decode.launches = 0
+        lz_decode.kernel_launches = 0
         outs = decompress_lanes(streams)          # the card, entropy="gpu"
         torch.cuda.synchronize()
         launches = (huf_decode.launches, lz_decode.launches)
+        main_kernel_launches += lz_decode.kernel_launches
         if b"".join(outs) != corpus:
             raise AssertionError(f"level {level}: decode != corpus")
         if min(launches) < 1:
@@ -1185,7 +1289,7 @@ def main() -> int:
                               staged[level][0], chunks, smi)
           for level in MAIN_LEVELS}
 
-    # 14. one 8 MB stream: one chain of 64 inner blocks, one warp
+    # 14. one 8 MB stream: one chain of 64 inner blocks
     ps = {level: pallas_stream(tld, th, tpd, runtime, split_streams, level,
                                corpus[:STREAM_BYTES], smi)
           for level in STREAM_LEVELS}
@@ -1200,7 +1304,10 @@ def main() -> int:
     rf = realfiles(tld, th, runtime, decompress_lanes,
                    build_corpus_realfiles, smi)
 
-    # 17. kernels line: launches summed over every path's run, counted
+    # 17. a linked frame of the whole corpus: one chain of 256 inner blocks
+    lf = linked(tld, runtime, corpus, smi)
+
+    # 18. kernels line: launches summed over every path's run, counted
     # from 0 just before it and read just after
     lz_paths = {"decompress_lanes": main_launches,
                 "sweep": sweep_launches[1],
@@ -1208,7 +1315,14 @@ def main() -> int:
                 "decode_batch_pallas": sum(r["launches"]
                                            for r in pb.values()),
                 "decompress_pallas": sum(r["launches"] for r in ps.values()),
-                "realfiles": rf["launches"]["lz_decode"] if rf else 0}
+                "realfiles": rf["launches"]["lz_decode"] if rf else 0,
+                "linked_frame": lf["launches"]}
+    lz_kernel_paths = {
+        "decompress_lanes": main_kernel_launches,
+        "decode_batch_pallas": sum(r["kernel_launches"] for r in pb.values()),
+        "decompress_pallas": sum(r["kernel_launches"] for r in ps.values()),
+        "realfiles": rf["launches"]["lz_decode_kernels"] if rf else 0,
+        "linked_frame": lf["kernel_launches"]}
     huf_paths = {"decompress_lanes": huf_launches,
                  "sweep": sweep_launches[0],
                  "decompress_frame": frame_launches[0],
@@ -1226,6 +1340,11 @@ def main() -> int:
                     "_liz_block_kernel",
         "launches": sum(lz_paths.values()),
         "launches_by_path": lz_paths,
+        # kernels launched by the wrapper, counted in the same runs
+        "kernel_launches_by_path": lz_kernel_paths,
+        "kernel_launches_per_call_by_path": {
+            k: v / lz_paths[k] if lz_paths[k] else None
+            for k, v in lz_kernel_paths.items()},
         "max_abs_err": max_err,
         "tolerance": PLAIN_TOLERANCE,
         "matches_plain": max_err <= PLAIN_TOLERANCE,
@@ -1244,14 +1363,25 @@ def main() -> int:
             "decode_batch_pallas": {str(lv): r["kernel_ms"]
                                     for lv, r in pb.items()},
             "decompress_pallas": {str(lv): r["kernel_ms"]
-                                  for lv, r in ps.items()}},
+                                  for lv, r in ps.items()},
+            "decompress_frame_linked": {str(LINKED_LEVEL): lf["kernel_ms"]}},
+        "deferred_share_by_path": {
+            "decompress_lanes": {str(lv): deferred[lv] for lv in deferred},
+            "decode_batch_pallas": {str(lv): r["deferred_share"]
+                                    for lv, r in pb.items()},
+            "decompress_pallas": {str(lv): r["deferred_share"]
+                                  for lv, r in ps.items()},
+            "decompress_frame_linked": {
+                str(LINKED_LEVEL): lf["deferred_share"]}},
         "plain_ms_by_path": {"decompress_pallas": {
             "21": ps[21]["against_plain"]["plain_ms"]}},
         "bound_ms_by_path": {
             "decode_batch_pallas": {str(lv): r["hbm_floor_ms"]
                                     for lv, r in pb.items()},
             "decompress_pallas": {str(lv): r["hbm_floor_ms"]
-                                  for lv, r in ps.items()}},
+                                  for lv, r in ps.items()},
+            "decompress_frame_linked": {
+                str(LINKED_LEVEL): lf["hbm_floor_ms"]}},
     }, {
         "name": "huf_decode",
         "route": "cuda",
@@ -1283,7 +1413,7 @@ def main() -> int:
     }] + [encoder_entry(*k, enc, enc_err, enc_plain_ms, len(chunks))
           for k in ENC_KERNELS]}), flush=True)
 
-    # 18. last line
+    # 19. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

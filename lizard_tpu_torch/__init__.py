@@ -29,7 +29,9 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``ops.enc_huf``        -- Huff0 encode: the CUDA kernel csrc/huf_encode.cu,
                             its host plan, wrapper and plain PyTorch version
 - ``frame`` / ``api``    -- frame container and one-shot entry points
-                            (compress(backend="gpu"), compress_frame_lanes)
+                            (compress(backend="gpu"), compress_frame_lanes,
+                            decompress_frame and decompress_frames: linked,
+                            independent and skippable frames)
 
 Every entry point runs on the card unless the caller passes device="cpu".
 Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
@@ -51,6 +53,7 @@ from lizard_tpu_torch.api import (  # noqa: F401
 from lizard_tpu_torch.frame import (  # noqa: F401
     compress_frame_lanes,
     decompress_frame_lanes,
+    decompress_frames,
 )
 from lizard_tpu_torch.ops.enc_huf import huf_compress_batch  # noqa: F401
 from lizard_tpu_torch.ops.enc_lanes import (  # noqa: F401

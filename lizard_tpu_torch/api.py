@@ -6,7 +6,7 @@ native encoder, and block-stream and frame decompression on the card
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import LIZARD_DEFAULT_CLEVEL
-from lizard_tpu_torch.frame import decompress_frame_lanes
+from lizard_tpu_torch import frame
 from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 
@@ -47,7 +47,7 @@ def decompress(data: bytes, max_out: int | None = None, device=None) -> bytes:
     return out
 
 
-def decompress_frame(data: bytes, device=None) -> bytes:
-    """Decode one blockIndependent frame on `device`
-    (frame.decompress_frame_lanes)."""
-    return decompress_frame_lanes(data, device=device)
+def decompress_frame(data: bytes, device=None, **kw) -> bytes:
+    """Decode one frame on `device` (frame.decompress_frame): linked or
+    blockIndependent, any level, or a skippable frame (b"")."""
+    return frame.decompress_frame(data, device=device, **kw)

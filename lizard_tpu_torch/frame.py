@@ -4,11 +4,19 @@ lib/lizard_frame.c).
 
 Container: magic, descriptor (FLG/BD/contentSize/HC), LE32-size-prefixed
 blocks (high bit = stored), endmark, optional xxh32 content checksum.
-`decompress_frame_lanes` decodes every block of a blockIndependent frame as
-one chain of the CUDA LZ kernel (ops/lane_decode.py), after the Huff0
-kernel at levels 30-49 (ops/fuse.py). `compress_frame_lanes` compresses
-every frame block on the card with the device encoder (ops/enc_lanes.py),
-Huff0 stage included (ops/enc_huf.py).
+
+`decompress_frame` / `decompress_one_frame` / `decompress_frames` decode
+every frame the JAX package decodes, on the card: skippable frames,
+blockIndependent frames (each compressed frame block one chain of the CUDA
+LZ kernel, ops/lane_decode.py) and linked frames (the whole frame one
+chain: stored frame blocks become literal-only inner blocks of it, so
+matches reach across frame blocks through the chain's own output, the
+reference's window_base=0), after the Huff0 kernel at levels 30-49
+(ops/fuse.py); the frame blocks may mix codeword families.
+`decompress_frame_lanes` is the JAX function of that name: blockIndependent
+frames of one family only. `compress_frame_lanes` compresses every frame
+block on the card with the device encoder (ops/enc_lanes.py), Huff0 stage
+included (ops/enc_huf.py).
 """
 
 from lizard_tpu_torch import runtime
@@ -19,10 +27,15 @@ from lizard_tpu_torch.format.constants import (
     LIZARDF_MAGIC,
     LIZARDF_MAGIC_SKIPPABLE_START,
 )
-from lizard_tpu_torch.format.levels import LEVELS, validate_level
+from lizard_tpu_torch.format.levels import LEVELS, Codewords, validate_level
 from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
-from lizard_tpu_torch.ops.lane_decode import decompress_lanes
+from lizard_tpu_torch.ops.fuse import decode_fused, plan_split
+from lizard_tpu_torch.ops.lane_decode import (
+    decode_batch_lanes, decompress_lanes)
+from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
+from lizard_tpu_torch.ops.split import (
+    finalize, inner_block_spans, new_accumulator, split_stored, split_stream)
 from lizard_tpu_torch.runtime import xxh32
 
 
@@ -194,6 +207,26 @@ def compress_frame_lanes(data: bytes, level: int = 11,
     return _frame(header, comps, parts, data, content_checksum)
 
 
+def linked_frame(stream: bytes, data: bytes, block_size_id: int = 4) -> bytes:
+    """A linked frame of the compressed stream `stream` of `data`, without
+    encoding anew: the stream's inner blocks (at most LIZARD_BLOCK_SIZE
+    bytes each) cut into frame blocks of LIZARDF_BLOCK_SIZES[block_size_id]
+    bytes of output at most, each its level byte and its inner blocks, and
+    a content checksum. Later frame blocks' matches reach into earlier ones,
+    as the stream's did."""
+    per = LIZARDF_BLOCK_SIZES[block_size_id] // LIZARD_BLOCK_SIZE
+    spans = inner_block_spans(stream)
+    header = bytes([1 << 6 | 1 << 2, block_size_id << 4])
+    out = bytearray(LIZARDF_MAGIC.to_bytes(4, "little") + header)
+    out.append((xxh32(header) >> 8) & 0xFF)
+    for k in range(0, len(spans), per):
+        last = spans[min(k + per, len(spans)) - 1]
+        part = stream[0:1] + stream[spans[k][0]:last[1]]
+        out += len(part).to_bytes(4, "little") + part
+    out += (0).to_bytes(4, "little") + xxh32(data).to_bytes(4, "little")
+    return bytes(out)
+
+
 def decompress_frame_lanes(src: bytes, device=None,
                            entropy: str = "gpu") -> bytes:
     """Decode one blockIndependent frame on `device` (the card unless
@@ -261,4 +294,121 @@ def decompress_frame_lanes(src: bytes, device=None,
         raise FrameError("content size mismatch")
     if p != len(src):
         raise FrameError("trailing data after frame")
+    return bytes(out)
+
+
+def _frame_blocks(src: bytes, p: int) -> tuple[list[tuple[bool, bytes]], int]:
+    """The (stored, payload) frame blocks from p to the endmark, and the
+    position after it."""
+    blocks = []
+    while True:
+        if p + 4 > len(src):
+            raise FrameError("missing endmark")
+        bsize = int.from_bytes(src[p:p + 4], "little")
+        p += 4
+        if bsize == 0:
+            return blocks, p
+        stored = bool(bsize & LIZARDF_BLOCKUNCOMPRESSED_FLAG)
+        bsize &= ~LIZARDF_BLOCKUNCOMPRESSED_FLAG
+        if p + bsize > len(src):
+            raise FrameError("block truncated")
+        blocks.append((stored, src[p:p + bsize]))
+        p += bsize
+
+
+def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
+                         entropy: str) -> bytes:
+    """Every frame block in one batch: a linked frame is one chain (stream
+    id 0; a stored block is literal-only inner blocks of it), else each
+    frame block is its own chain. One lz_decode launch, after one
+    huf_decode launch at levels 30-49 on entropy="gpu"."""
+    if entropy not in ("gpu", "host"):
+        raise ValueError(f"unknown entropy route {entropy!r}")
+    spans = []                  # (first inner block, end, stored)
+
+    def split(acc, hd):
+        family = None
+        for i, (stored, blob) in enumerate(blocks):
+            first = len(acc["stream_id"])
+            sid = 0 if linked else i
+            if stored:
+                split_stored(blob, acc, sid)
+            else:
+                f = split_stream(blob, acc, sid, hd)
+                family = family or f
+            spans.append((first, len(acc["stream_id"]), stored))
+        return family or Codewords.LZ4
+    try:
+        if entropy == "gpu":
+            batch, plan = plan_split(split)
+            decoded = decode_fused(batch, plan, dev)
+        else:
+            acc = new_accumulator()
+            batch = finalize(acc, split(acc, None))
+            decoded = decode_batch_lanes(batch, device=dev)
+    except CorruptError as e:
+        raise FrameError(f"block decode failed: {e}") from e
+    out = bytearray()
+    for first, end, stored in spans:
+        part = b"".join(decoded[first:end])
+        if not stored and len(part) > max_block:
+            raise FrameError("block decode failed: output exceeds max_out")
+        out += part
+    return bytes(out)
+
+
+def decompress_one_frame(src: bytes, verify_checksum: bool = True,
+                         device=None,
+                         entropy: str = "gpu") -> tuple[bytes, int]:
+    """Decode the frame at the start of `src` on `device` (the card unless
+    device="cpu"): (its bytes, the bytes it took). A skippable frame gives
+    b"". Linked and blockIndependent frames, any level, families mixed
+    (see the module note); entropy as in decompress_frame_lanes. The port
+    of lizard_tpu/frame.py::decompress_one_frame; raises FrameError."""
+    if len(src) >= 8:
+        magic = int.from_bytes(src[0:4], "little")
+        if (magic & 0xFFFFFFF0) == LIZARDF_MAGIC_SKIPPABLE_START:
+            size = int.from_bytes(src[4:8], "little")
+            if 8 + size > len(src):
+                raise FrameError("skippable frame truncated")
+            return b"", 8 + size
+    dev = resolve_device(device)
+    info = parse_frame_header(src)
+    blocks, p = _frame_blocks(src, info.header_size)
+    out = _decode_frame_blocks(blocks, info.block_linked,
+                               LIZARDF_BLOCK_SIZES[info.block_size_id], dev,
+                               entropy)
+    if info.content_checksum:
+        if p + 4 > len(src):
+            raise FrameError("missing content checksum")
+        stored_crc = int.from_bytes(src[p:p + 4], "little")
+        p += 4
+        if verify_checksum and xxh32(out) != stored_crc:
+            raise FrameError("content checksum mismatch")
+    if info.content_size is not None and info.content_size != len(out):
+        raise FrameError("content size mismatch")
+    return out, p
+
+
+def decompress_frame(src: bytes, verify_checksum: bool = True, device=None,
+                     entropy: str = "gpu") -> bytes:
+    """Decode one frame (decompress_one_frame); raises FrameError on any
+    byte after it, a second frame included (decompress_frames takes
+    those)."""
+    out, consumed = decompress_one_frame(src, verify_checksum, device, entropy)
+    if consumed != len(src):
+        raise FrameError("trailing data after frame")
+    return out
+
+
+def decompress_frames(src: bytes, verify_checksum: bool = True, device=None,
+                      entropy: str = "gpu") -> bytes:
+    """Decode a sequence of concatenated frames, skippable ones included."""
+    out = bytearray()
+    p = 0
+    while p < len(src):
+        data, n = decompress_one_frame(src[p:], verify_checksum, device,
+                                       entropy)
+        out += data
+        p += n
     return bytes(out)

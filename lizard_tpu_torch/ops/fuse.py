@@ -35,13 +35,20 @@ def build_fused_plan(streams: list[bytes]) -> tuple[BlockBatch, HufPlan]:
     """Split `streams` with a hole for every Huffman-coded stream, and plan
     the Huff0 decode of every blob into its hole. RLE and stored blobs are
     written into their holes here; the batch and plan are on the CPU."""
+    return plan_split(lambda acc, hd: split_into(streams, acc, hd))
+
+
+def plan_split(split) -> tuple[BlockBatch, HufPlan]:
+    """build_fused_plan over any split: `split(acc, hd)` fills the
+    accumulator `acc` (ops/split.py), passing `hd` for every Huffman-coded
+    stream, and returns the batch's codeword family."""
     acc = new_accumulator()
     pend = []                                   # (blob, orig, kind, block)
 
     def hole(blob, orig, kind):
         pend.append((blob, orig, kind, len(acc["stream_id"])))
         return np.zeros(orig, np.uint8)
-    batch = finalize(acc, split_into(streams, acc, hole))
+    batch = finalize(acc, split(acc, hole))
     dests, names = [], []
     for _, _, kind, block in pend:
         k = STREAMS.index(kind)
@@ -62,8 +69,16 @@ def decompress_lanes_fused(streams: list[bytes], device=None) -> list[bytes]:
     device="cpu"): huf_decode then lz_decode on one stream, and one copy
     back. Raises HufError (a CorruptError) naming the stream and block of
     a corrupt Huff0 segment, CorruptError for a corrupt LZ chain."""
-    dev = resolve_device(device)
     batch, plan = build_fused_plan(streams)
+    return join_streams(batch, decode_fused(batch, plan, device),
+                        len(streams))
+
+
+def decode_fused(batch: BlockBatch, plan: HufPlan, device=None) -> list[bytes]:
+    """The decoded bytes of every block of a planned batch (plan_split),
+    in batch order: huf_decode (when the plan has segments) then lz_decode
+    on one stream of `device`, and one copy back."""
+    dev = resolve_device(device)
     args = stage_batch(batch, dev)
     huf_status = None
     if plan.segs.shape[0]:
@@ -72,5 +87,4 @@ def decompress_lanes_fused(streams: list[bytes], device=None) -> list[bytes]:
     result = lz_decode(**args)
     if huf_status is not None:
         raise_on_status(huf_status, plan)
-    return join_streams(batch, read_blocks(batch, args, *result),
-                        len(streams))
+    return read_blocks(batch, args, *result)

@@ -1,19 +1,21 @@
 """LZ block decode of post-entropy streams on the card: the port of
 lizard_tpu/ops/lane_decode.py (decode_batch_lanes, decompress_lanes, and its
-Pallas kernel `_lane_kernel`, here the CUDA kernel csrc/lz_decode.cu).
+Pallas kernel `_lane_kernel`, here the CUDA kernels of csrc/lz_decode.cu).
 
-The unit of work is a CHAIN: the consecutive inner blocks of one compressed
-stream, which share one LZ77 window (64 KB for fastLZ4, up to 16 MB for
-LIZv1). The kernel gives each chain one warp and writes the chain's output
-contiguously at its base (first block index x LIZARD_BLOCK_SIZE), so match
-sources are read straight from the chain's own output in device memory.
-None of the TPU kernel's layout is needed: no (R,128) word pool, no slots
-or bands, no VMEM ring or far window, and so no host fallback. A chain
-whose non-final inner block is short decodes like any other.
+A CHAIN is the consecutive inner blocks of one compressed stream (or of one
+linked frame), which share one LZ77 window (64 KB for fastLZ4, up to 16 MB
+for LIZv1). The output of chain c lies contiguously at its base (first
+block index x LIZARD_BLOCK_SIZE). On the card the unit of work is the inner
+block: one CTA decodes each block into a tile in shared memory, defers the
+matches that reach before the block's start, and a second pass resolves
+them against the chain's output (the design is in csrc/lz_decode.cu). None
+of the TPU kernel's layout is needed: no (R,128) word pool, no slots or
+bands, no VMEM ring or far window, and so no host fallback. A chain whose
+non-final inner block is short decodes like any other.
 
 `lz_decode` is the kernel wrapper; `lz_decode_plain` is the plain PyTorch
 version with the same signature and outputs. A CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernels or raises.
 """
 
 import ctypes
@@ -35,7 +37,6 @@ from lizard_tpu_torch.format.constants import (
     RUN_BITS_LZ4,
     RUN_MASK_LZ4,
 )
-from lizard_tpu_torch.format.levels import Codewords
 from lizard_tpu_torch.ops import _build
 from lizard_tpu_torch.ops.split import STREAMS, BlockBatch, split_streams
 
@@ -80,7 +81,7 @@ def stage_batch(batch: BlockBatch, device) -> dict:
     args = {name: getattr(batch, name).to(device) for name in STREAMS}
     args["blocks"] = batch.block_table().to(device)
     args["chains"] = chain_table(batch.stream_id).to(device)
-    args["family"] = 1 if batch.codewords == Codewords.LIZv1 else 0
+    args["family"] = batch.family_arg(device)
     return args
 
 
@@ -99,7 +100,14 @@ def _check(flags, literals, off16, off24, blocks, chains, family):
                 f"{name} must be a contiguous (n, {width}) int64 tensor")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, flags on {dev}")
-    if family not in (0, 1):
+    if isinstance(family, torch.Tensor):
+        if (family.dtype != torch.uint8 or family.shape != (blocks.shape[0],)
+                or not family.is_contiguous()):
+            raise ValueError("a per-block family must be a contiguous "
+                             "(n_blocks,) uint8 tensor")
+        if family.device != dev:
+            raise ValueError(f"family is on {family.device}, flags on {dev}")
+    elif family not in (0, 1):
         raise ValueError(f"family must be 0 (fastLZ4) or 1 (LIZv1), got {family}")
 
 
@@ -112,53 +120,121 @@ def _outputs(blocks, chains, device):
     return out, block_len, status
 
 
+# meta columns of lz_decode_meta (per block: pass1's result, jump's rounds)
+(META_STATUS, META_REACH, META_DEFERRED, META_DEFERRED_BYTES,
+ META_ROUNDS) = range(5)
+# the most inner blocks of one chain on the card: pass 2 keeps chain
+# positions in 32 bits (csrc/lz_decode.cu)
+MAX_CHAIN_BLOCKS = (1 << 32) // LIZARD_BLOCK_SIZE
+
+
+def check_chain_blocks(chains, n_blocks: int) -> None:
+    """Raise ValueError if a chain has more than MAX_CHAIN_BLOCKS inner
+    blocks. No chain of chain_table's rows has more than n_blocks -
+    n_chains + 1, so the table is read (a copy from the card) only when
+    that bound does not settle it."""
+    if n_blocks - chains.shape[0] + 1 <= MAX_CHAIN_BLOCKS:
+        return
+    longest = int(chains[:, 1].max())
+    if longest > MAX_CHAIN_BLOCKS:
+        raise ValueError(
+            f"a chain of {longest} inner blocks: lz_decode on the card "
+            f"decodes at most {MAX_CHAIN_BLOCKS} (4 GiB) in one chain")
+
+
 def _launcher():
     """The C entry of csrc/lz_decode.cu: every pointer and the stream as
     c_void_p (an undeclared pointer would be cut to 32 bits)."""
     fn = _build.load("lz_decode").lz_decode_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6
-                   + [ctypes.c_int64, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p,
+                                            ctypes.c_int64, ctypes.c_void_p,
+                                            ctypes.c_int]
+                   + [ctypes.c_void_p] * 12)
     return fn
 
 
 def lz_decode(flags, literals, off16, off24, blocks, chains, family):
     """Decode every chain of a staged batch (see stage_batch).
 
-    Returns (out uint8 [n_blocks * LIZARD_BLOCK_SIZE], block_len int32
-    [n_blocks], status int32 [n_chains]). Chain c's bytes lie contiguously
-    at out[chains[c, 2]:], its blocks' lengths in block_len; status 0 = ok,
-    negative = corrupt (STATUS_TEXT), and then the lengths of the failing
-    block and every later block of the chain are -1. Bytes past a chain's
-    decoded length are undefined.
+    `chains` rows are chain_table's: disjoint runs of blocks in block
+    order; `family` is 0 (fastLZ4) or 1 (LIZv1) for every block, or a
+    uint8 tensor of one per block. Returns (out uint8 [n_blocks *
+    LIZARD_BLOCK_SIZE], block_len int32 [n_blocks], status int32
+    [n_chains]). Chain c's bytes lie contiguously at out[chains[c, 2]:],
+    its blocks' lengths in block_len; status 0 = ok, negative = corrupt
+    (STATUS_TEXT), and then the lengths of the failing block and every
+    later block of the chain are -1. Bytes past a chain's decoded length,
+    and every byte of a corrupt chain, are undefined.
 
     CUDA tensors launch csrc/lz_decode.cu on the current stream without
-    synchronising; CPU tensors run lz_decode_plain."""
+    synchronising: two kernels when every chain is one block, five when a
+    chain has more (`lz_decode.kernel_launches` adds them up, as
+    `lz_decode.launches` counts the calls). Pass 2's scratch, for the
+    non-first blocks of chains only, is 4 bytes per byte of those blocks
+    plus 12 bytes per flags byte; a chain has at most MAX_CHAIN_BLOCKS
+    blocks (else ValueError). CPU tensors run lz_decode_plain."""
     _check(flags, literals, off16, off24, blocks, chains, family)
     if flags.device.type == "cpu":
         return lz_decode_plain(flags, literals, off16, off24, blocks, chains,
                                family)
-    if flags.device.type != "cuda":
-        raise ValueError(f"lz_decode runs on cuda or cpu, not {flags.device}")
-    out, block_len, status = _outputs(blocks, chains, flags.device)
-    if chains.shape[0] == 0:
-        return out, block_len, status
-    fn = _launcher()
-    with torch.cuda.device(flags.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(flags.data_ptr(), literals.data_ptr(), off16.data_ptr(),
-                 off24.data_ptr(), blocks.data_ptr(), chains.data_ptr(),
-                 chains.shape[0], family,
-                 out.data_ptr(), block_len.data_ptr(), status.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"lz_decode launch failed: cudaError {err}")
-    lz_decode.launches += 1
-    return out, block_len, status
+    return lz_decode_meta(flags, literals, off16, off24, blocks, chains,
+                          family)[:3]
 
 
 lz_decode.launches = 0
+lz_decode.kernel_launches = 0
+
+
+def lz_decode_meta(flags, literals, off16, off24, blocks, chains, family):
+    """lz_decode on CUDA tensors, with a per-block record beside the
+    outputs: (out, block_len, status, meta int32 [n_blocks, 5]), meta's
+    columns META_* (pass1: the block's own parse status, the farthest reach
+    of its cross-block matches, its deferred copies and their bytes; jump:
+    its pointer-jumping rounds, 0 when pass 2 did not run; undefined for a
+    block in no chain). Counts as one lz_decode call."""
+    _check(flags, literals, off16, off24, blocks, chains, family)
+    n_blocks, n_chains = blocks.shape[0], chains.shape[0]
+    check_chain_blocks(chains, n_blocks)
+    if flags.device.type != "cuda":
+        raise ValueError(f"lz_decode runs on cuda or cpu, not {flags.device}")
+    dev = flags.device
+    out, block_len, status = _outputs(blocks, chains, dev)
+    meta = torch.empty((n_blocks, 5), dtype=torch.int32, device=dev)
+    if n_chains == 0 or n_blocks == 0:
+        return out, block_len, status, meta
+    i32 = dict(dtype=torch.int32, device=dev)
+    bchain = torch.empty(n_blocks, **i32)
+    start = torch.empty(n_blocks, dtype=torch.int64, device=dev)
+    cinfo = torch.empty(n_chains, **i32)
+    # pass 2, for the non-first blocks of chains (csrc/lz_decode.cu)
+    n_scratch = max(n_blocks - n_chains, 0)
+    recs = bitmaps = ptr = None
+    if n_scratch:
+        recs = torch.empty(3 * max(flags.numel(), 1), **i32)
+        bitmaps = torch.empty(n_scratch * (LIZARD_BLOCK_SIZE // 32), **i32)
+        ptr = torch.empty(n_scratch * LIZARD_BLOCK_SIZE, **i32)
+    per_block = isinstance(family, torch.Tensor)
+    launched = ctypes.c_int32(0)
+    fn = _launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(flags.data_ptr(), literals.data_ptr(), off16.data_ptr(),
+                 off24.data_ptr(), blocks.data_ptr(), n_blocks,
+                 chains.data_ptr(), n_chains,
+                 family.data_ptr() if per_block else None,
+                 0 if per_block else family,
+                 out.data_ptr(), block_len.data_ptr(), status.data_ptr(),
+                 meta.data_ptr(), recs.data_ptr() if n_scratch else None,
+                 bitmaps.data_ptr() if n_scratch else None,
+                 bchain.data_ptr(), start.data_ptr(), cinfo.data_ptr(),
+                 ptr.data_ptr() if n_scratch else None,
+                 ctypes.addressof(launched), stream)
+    lz_decode.kernel_launches += launched.value
+    if err != 0:
+        raise RuntimeError(f"lz_decode launch failed: cudaError {err}")
+    lz_decode.launches += 1
+    return out, block_len, status, meta
 
 
 def chain_outputs(out, block_len, chains) -> list[torch.Tensor]:
@@ -206,6 +282,8 @@ def lz_decode_plain(flags, literals, off16, off24, blocks, chains, family):
     host = {n: t.cpu().numpy().tobytes() for n, t in
             zip(STREAMS, (flags, literals, off16, off24))}
     table = blocks.cpu().tolist()
+    fams = (family.cpu().tolist() if isinstance(family, torch.Tensor)
+            else [family] * len(table))
     lens = [-1] * len(table)
     codes = []
     for first, count, base in chains.cpu().tolist():
@@ -214,7 +292,7 @@ def lz_decode_plain(flags, literals, off16, off24, blocks, chains, family):
         for b in range(first, first + count):
             bstart = op
             try:
-                op = _decode_block(host, table[b], family, literals, out,
+                op = _decode_block(host, table[b], fams[b], literals, out,
                                    base, op, bstart + LIZARD_BLOCK_SIZE)
             except _Corrupt as e:
                 code = e.code

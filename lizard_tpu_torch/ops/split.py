@@ -27,6 +27,7 @@ from lizard_tpu_torch.format.constants import (
     FLAG_OFFSET16,
     FLAG_OFFSET24,
     FLAG_UNCOMPRESSED,
+    LIZARD_BLOCK_SIZE,
     LIZARD_MAX_CLEVEL,
     LIZARD_MIN_CLEVEL,
 )
@@ -62,6 +63,16 @@ class BlockBatch:
     off24_len: torch.Tensor
     # stream id per block (int64); consecutive blocks of one id form a chain
     stream_id: torch.Tensor
+    # codeword family per block (uint8: 0 fastLZ4, 1 LIZv1) where the batch
+    # mixes them; None: every block is `codewords`
+    block_family: torch.Tensor | None = None
+
+    def family_arg(self, device):
+        """lz_decode's `family`: one int for the batch, or the per-block
+        tensor on `device` where the blocks mix families."""
+        if self.block_family is None:
+            return int(self.codewords == Codewords.LIZv1)
+        return self.block_family.to(device)
 
     def block_table(self) -> torch.Tensor:
         """(n_blocks, 8) int64: the TABLE_FIELDS columns side by side."""
@@ -108,6 +119,17 @@ def _read_stream(src, ip, flag, hd=None, kind=None):
     return np.frombuffer(data, dtype=np.uint8), ip + 6 + comp
 
 
+def split_stored(data: bytes, batch: dict, stream_id: int) -> None:
+    """Append `data` to `batch` as literal-only inner blocks of at most
+    LIZARD_BLOCK_SIZE bytes each (a stored frame block in a linked chain),
+    of no codeword family of their own."""
+    data = np.frombuffer(data, dtype=np.uint8)
+    for pos in range(0, len(data), LIZARD_BLOCK_SIZE):
+        _append(batch, stream_id, None, flags=np.zeros(0, np.uint8),
+                literals=data[pos:pos + LIZARD_BLOCK_SIZE],
+                off16=np.zeros(0, np.uint8), off24=np.zeros(0, np.uint8))
+
+
 def split_stream(src: bytes, batch: dict, stream_id: int,
                  hd=None) -> Codewords:
     """Split one compressed stream (level byte + inner blocks) into `batch`
@@ -134,7 +156,7 @@ def split_stream(src: bytes, batch: dict, stream_id: int,
             ip += 3
             if ip + n > iend:
                 raise CorruptError("uncompressed block truncated")
-            _append(batch, stream_id,
+            _append(batch, stream_id, family,
                     flags=np.zeros(0, np.uint8),
                     literals=src[ip:ip + n],
                     off16=np.zeros(0, np.uint8),
@@ -151,18 +173,43 @@ def split_stream(src: bytes, batch: dict, stream_id: int,
         flags, ip = _read_stream(src, ip, header & FLAG_FLAGS, hd, "flags")
         lits, ip = _read_stream(src, ip, header & FLAG_LITERALS, hd,
                                 "literals")
-        _append(batch, stream_id, flags=flags, literals=lits, off16=o16, off24=o24)
+        _append(batch, stream_id, family, flags=flags, literals=lits,
+                off16=o16, off24=o24)
     return family
 
 
-def _append(batch, stream_id, **streams):
+def inner_block_spans(src: bytes) -> list[tuple[int, int]]:
+    """The byte span (start, end) in `src` of every inner block of one
+    compressed stream (after its level byte), from the headers alone."""
+    spans, ip, n = [], 1, len(src)
+    while ip < n:
+        start, header = ip, src[ip]
+        ip += 1
+        if header == FLAG_UNCOMPRESSED:
+            ip += 3 + (_le24(src, ip) if ip + 3 <= n else 0)
+        else:
+            for bit in (0, FLAG_OFFSET16, FLAG_OFFSET24, FLAG_FLAGS,
+                        FLAG_LITERALS):
+                if ip + (6 if header & bit else 3) > n:
+                    raise CorruptError("stream header truncated")
+                ip += (6 + _le24(src, ip + 3) if header & bit
+                       else 3 + _le24(src, ip))
+        if ip > n:
+            raise CorruptError("inner block truncated")
+        spans.append((start, ip))
+    return spans
+
+
+def _append(batch, stream_id, family, **streams):
     for name, arr in streams.items():
         batch[name].append(arr)
     batch["stream_id"].append(stream_id)
+    batch["family"].append(family)
 
 
 def new_accumulator() -> dict:
-    return {"flags": [], "literals": [], "off16": [], "off24": [], "stream_id": []}
+    return {"flags": [], "literals": [], "off16": [], "off24": [],
+            "stream_id": [], "family": []}
 
 
 def finalize(batch: dict, codewords: Codewords) -> BlockBatch:
@@ -177,6 +224,12 @@ def finalize(batch: dict, codewords: Codewords) -> BlockBatch:
     lits, l_off, l_len = cat("literals")
     o16, s_off, s_len = cat("off16")
     o24, b_off, b_len = cat("off24")
+    fams = {f for f in batch["family"] if f is not None}
+    block_family = None
+    if len(fams) > 1:       # a literal-only block takes the batch's family
+        block_family = torch.tensor(
+            [(f or codewords) == Codewords.LIZv1 for f in batch["family"]],
+            dtype=torch.uint8)
     return BlockBatch(
         codewords=codewords,
         n_blocks=len(batch["stream_id"]),
@@ -186,12 +239,15 @@ def finalize(batch: dict, codewords: Codewords) -> BlockBatch:
         off16_off=s_off, off16_len=s_len,
         off24_off=b_off, off24_len=b_len,
         stream_id=torch.tensor(batch["stream_id"], dtype=torch.int64),
+        block_family=block_family,
     )
 
 
 def split_into(streams: list[bytes], acc: dict, hd=None) -> Codewords:
     """Split every stream into the accumulator `acc` (stream i gets id i);
-    returns the batch's codeword family."""
+    returns the batch's codeword family. Raises CorruptError when the
+    streams mix families (decompress_lanes takes one family, as in the
+    JAX package; frames may mix them, see frame.py)."""
     family = None
     for i, s in enumerate(streams):
         f = split_stream(s, acc, i, hd)

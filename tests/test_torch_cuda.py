@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from lizard_tpu_torch import frame as tframe
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError, HufError
 from lizard_tpu_torch.ops import enc_huf as teh
@@ -24,6 +25,7 @@ from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops import lane_huf as tlh
 from lizard_tpu_torch.ops import pallas_decode as tpd
+from lizard_tpu_torch.ops import split as tsplit
 from lizard_tpu_torch.ops.fuse import build_fused_plan
 from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
@@ -239,6 +241,137 @@ def test_lane_huf_matches_huf128_and_native(card):
     assert got == tlh.huf_decompress_lanes(blobs, device="cpu")
     assert got[:-1] == [runtime.huf_decompress(b, n) for b, n in blobs[:-1]]
     assert got[-2:] == [data12, b"A" * 100] and len(blobs) >= 6
+
+
+# ------------------------------------- lz_decode: deferred copies, layout
+
+def _plain_equal(streams, card, datas=None):
+    """lz_decode (through lz_decode_meta) against lz_decode_plain on one
+    staged batch: equal statuses, lengths and (for OK chains) bytes.
+    Returns (kernel status, block_len, meta)."""
+    args = tld.stage_batch(split_streams(streams), card)
+    before = tld.lz_decode.launches
+    out, lens, status, meta = tld.lz_decode_meta(**args)
+    torch.cuda.synchronize()
+    assert tld.lz_decode.launches == before + 1
+    p = tld.lz_decode_plain(**args)
+    assert torch.equal(status, p[2]) and torch.equal(lens, p[1])
+    ok = (status == tld.OK).cpu().tolist()
+    got = _chain_bytes(out, lens, args["chains"])
+    want = _chain_bytes(*p[:2], args["chains"])
+    assert [g for g, o in zip(got, ok) if o] == [w for w, o in zip(want, ok)
+                                                   if o]
+    if datas is not None:
+        assert got == datas
+    return status.cpu(), lens.cpu(), meta.cpu()
+
+
+def _deferred_bytes(meta):
+    return int(meta[:, tld.META_DEFERRED_BYTES].sum())
+
+
+@pytest.mark.parametrize("level", [10, 21])
+def test_repeated_pattern_defers_and_resolves(level, card):
+    """One stream of eight 128 KB inner blocks of a repeated pattern: every
+    block's first match reaches back into the previous block, and in-block
+    matches cascade on those deferred bytes."""
+    datas = [(b"lizard-" * 200_000)[:8 << 17],
+             (bytes(range(251)) * 5000)[:5 << 17] + b"tail"]
+    _, _, meta = _plain_equal([runtime.compress(d, level) for d in datas],
+                              card, datas)
+    assert _deferred_bytes(meta) > (6 << 17)
+
+
+@pytest.mark.parametrize("level", [21, 29])
+def test_off24_reaches_several_blocks_back(level, card):
+    """LIZv1 chains whose off24 matches reach 4-6 inner blocks back."""
+    a = gen(200_000, seed=4, proba=0.3)
+    data = a + text_like(600_000, seed=5) + a + a[:100_000]
+    batch = split_streams([runtime.compress(data, level)])
+    assert batch.off24.numel() > 0
+    _, _, meta = _plain_equal([runtime.compress(data, level)], card, [data])
+    assert _deferred_bytes(meta) > 0
+
+
+def _uncompressed_block(data: bytes) -> bytes:
+    return bytes([0x80]) + len(data).to_bytes(3, "little") + data
+
+
+@pytest.mark.parametrize("level", [10, 21])
+def test_short_non_final_block_compacts(level, card):
+    """A chain whose first 128 KB inner block is replaced by two stored
+    inner blocks of 100,000 and 31,072 bytes: the chain positions of later
+    blocks do not move, their matches still reach back, and the output is
+    compacted from the slot layout."""
+    data = text_like(400_000, seed=6) + gen(200_000, seed=7, proba=0.6)
+    s = runtime.compress(data, level)
+    spans = tsplit.inner_block_spans(s)
+    head = data[:1 << 17]
+    mixed = (s[:1] + _uncompressed_block(head[:100_000])
+             + _uncompressed_block(head[100_000:]) + s[spans[1][0]:])
+    status, lens, meta = _plain_equal([mixed, s], card, [data, data])
+    assert lens[0] == 100_000 and _deferred_bytes(meta) > 0
+    assert tpd.decompress_pallas(mixed, len(data)) == data
+
+
+def test_late_corruption_and_bad_cross_block_offset(card):
+    """Statuses and lengths equal the plain version's: a token altered in
+    the sixth block of a chain, and a chain whose first block is cut to
+    1,000 stored bytes, so that the second block's cross-block matches
+    reach before the chain's start (offset error in block 1)."""
+    data = text_like(900_000, seed=8)
+    for level in (10, 21):
+        s = runtime.compress(data, level)
+        spans = tsplit.inner_block_spans(s)
+        late = bytearray(s)
+        p = spans[5][0] + 1
+        for _ in range(3):                  # len, off16, off24; then flags
+            p += 3 + int.from_bytes(late[p:p + 3], "little")
+        for k in range(40):
+            late[p + 3 + 7 * k] = 0x0F if level < 20 else 0x1F
+        cut = s[:1] + _uncompressed_block(data[:1000]) + s[spans[1][0]:]
+        status, lens, _ = _plain_equal([s, bytes(late), cut], card)
+        n = len(spans)                      # blocks of each chain
+        assert status.tolist()[::2] == [tld.OK, tld.ERR_OFFSET]
+        assert status[1] < 0 and (lens[n:n + 5] >= 0).all()
+        assert (lens[n + 5:2 * n] == -1).all()
+        assert lens[2 * n] == 1000 and (lens[2 * n + 1:] == -1).all()
+
+
+def test_linked_frame_on_the_card(card):
+    """A linked frame (one native stream cut into 256 KB frame blocks, a
+    stored frame block after it) decodes on the card in one lz_decode
+    call to the input, equal to the plain route."""
+    data = text_like(700_000, seed=9) + gen(300_000, seed=10, proba=0.6)
+    frame = tframe.linked_frame(runtime.compress(data, 21), data, 2)
+    before = tld.lz_decode.launches
+    assert tframe.decompress_frame(frame) == data
+    assert tld.lz_decode.launches == before + 1
+    assert tframe.decompress_frame(frame, device="cpu") == data
+    assert tframe.decompress_frames(frame + frame) == data + data
+
+
+@pytest.mark.parametrize("level", [10, 21])
+def test_kernel_launches_follow_the_chains(level, card):
+    """A batch of one-block chains launches pass1 and scan only (pass 2 has
+    no scratch then), also where a block's matches reach before its start
+    (the second inner block of a stream, alone: an offset error); a batch
+    with a chain of several blocks launches all five kernels."""
+    data = text_like(400_000, seed=11)
+    s = runtime.compress(data, level)
+    spans = tsplit.inner_block_spans(s)
+    alone = s[:1] + s[spans[1][0]:spans[1][1]]
+    singles = [runtime.compress(data[i:i + (1 << 17)], level)
+               for i in range(0, len(data), 1 << 17)]
+    for streams, want in ((singles + [alone], 2), (singles + [s], 5)):
+        before = tld.lz_decode.kernel_launches
+        status, _, meta = _plain_equal(streams, card)
+        assert tld.lz_decode.kernel_launches == before + want
+        assert (status[:-1] == tld.OK).all()
+    assert status[-1] == tld.OK and (meta[:, tld.META_ROUNDS] > 0).any()
+    status, _, meta = _plain_equal(singles + [alone], card)
+    assert status[-1] == tld.ERR_OFFSET
+    assert (meta[:, tld.META_ROUNDS] == 0).all()
 
 
 # ------------------------------------------------------- device encoder

@@ -9,6 +9,7 @@ import torch
 
 import lizard_tpu.frame as jframe
 import lizard_tpu_torch
+from lizard_tpu import runtime as jrt
 import lizard_tpu_torch.frame as tframe
 from lizard_tpu.utils.datagen import gen, text_like
 from lizard_tpu_torch.errors import CorruptError
@@ -110,3 +111,112 @@ def test_api_compress_defaults_to_the_device_encoder(level, monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         lizard_tpu_torch.compress(data, level)
+
+
+# ------------------------------------- every frame the JAX package decodes
+
+def _resign(frame: bytearray) -> bytes:
+    """The frame with its header checksum recomputed (no content size)."""
+    frame[6] = (xxh32(bytes(frame[4:6])) >> 8) & 0xFF
+    return bytes(frame)
+
+
+def _repetitive(n, seed):
+    """Text repeated every 40 KB: matches reach across 128 KB frame blocks."""
+    return (text_like(40_000, seed=seed) * (n // 40_000 + 1))[:n]
+
+
+def _frame_blocks(frame):
+    info = tframe.parse_frame_header(frame)
+    return tframe._frame_blocks(frame, info.header_size)[0]
+
+
+@pytest.mark.parametrize("level", [10, 21])
+def test_linked_frames_equal_reference(level):
+    """A linked frame from the JAX encoder decodes to the JAX decoder's bytes
+    (one chain, matches across frame blocks); the same blocks read as
+    independent ones do not decode, so matches do cross."""
+    data = _repetitive(300_000, seed=level)
+    frame = jframe.compress_frame(data, level, block_size_id=1,
+                                  block_linked=True)
+    assert tframe.parse_frame_header(frame).block_linked
+    assert len(_frame_blocks(frame)) == 3
+    want = jframe.decompress_frame(frame)
+    assert want == data
+    assert tframe.decompress_frame(frame, device="cpu") == want
+    assert lizard_tpu_torch.decompress_frame(frame, device="cpu") == want
+    assert tframe.decompress_frame(frame, device="cpu", entropy="host") == want
+    independent = bytearray(frame)
+    independent[4] |= 1 << 5
+    with pytest.raises(tframe.FrameError, match="block decode failed"):
+        tframe.decompress_frame(_resign(independent), device="cpu")
+    with pytest.raises(tframe.FrameError, match="blockIndependent"):
+        tframe.decompress_frame_lanes(frame, device="cpu")
+
+
+def test_linked_frame_with_a_stored_block():
+    """A stored frame block in the middle of a linked frame: literal-only
+    inner blocks of the chain, which later blocks' matches reach across."""
+    rng = np.random.default_rng(5)
+    text = _repetitive(200_000, seed=5)
+    data = text + rng.integers(0, 256, 260_000, dtype=np.uint8).tobytes() \
+        + text
+    frame = jframe.compress_frame(data, 21, block_size_id=1,
+                                  block_linked=True)
+    assert [s for s, _ in _frame_blocks(frame)] == [False, False, True,
+                                                    False, False, False]
+    want = jframe.decompress_frame(frame)
+    assert tframe.decompress_frame(frame, device="cpu") == want == data
+
+
+def test_skippable_frames():
+    """A lone skippable frame is b""; decompress_frames reads across a
+    skippable frame between two frames; decompress_frame refuses the
+    second frame, as in the JAX package."""
+    skip = (0x184D2A53).to_bytes(4, "little") + (5).to_bytes(4, "little") \
+        + b"12345"
+    assert tframe.decompress_frame(skip, device="cpu") == b"" \
+        == jframe.decompress_frame(skip)
+    a, b = gen(150_000, seed=8), _repetitive(200_000, seed=9)
+    stream = (tframe.compress_frame_fast(a, 10) + skip
+              + jframe.compress_frame(b, 21, block_size_id=1,
+                                      block_linked=True))
+    want = jframe.decompress_frames(stream)
+    assert tframe.decompress_frames(stream, device="cpu") == want == a + b
+    with pytest.raises(tframe.FrameError, match="trailing"):
+        tframe.decompress_frame(stream, device="cpu")
+    with pytest.raises(tframe.FrameError, match="skippable frame truncated"):
+        tframe.decompress_frames(stream + skip[:9], device="cpu")
+
+
+def test_mixed_family_independent_frame():
+    """An independent frame whose blocks are at -11 (fastLZ4) and -21
+    (LIZv1): per-block families in one batch, as the JAX scalar path."""
+    a, b = gen(131_072, seed=12, proba=0.6), text_like(100_000, seed=13)
+    frame = bytearray(tframe.compress_frame_fast(a + b, 11,
+                                                 content_checksum=False))
+    blocks = _frame_blocks(bytes(frame))
+    assert len(blocks) == 2 and not any(s for s, _ in blocks)
+    second = jrt.compress(b, 21)
+    head = frame[:frame.index(blocks[1][1]) - 4]
+    mixed = bytes(head) + len(second).to_bytes(4, "little") + second \
+        + (0).to_bytes(4, "little")
+    want = jframe.decompress_frame(mixed)
+    assert want == a + b
+    assert tframe.decompress_frame(mixed, device="cpu") == want
+    with pytest.raises(tframe.FrameError, match="mixed"):
+        tframe.decompress_frame_lanes(mixed, device="cpu")
+
+
+@pytest.mark.parametrize("level", [10, 21, 41])
+def test_linked_frame_of_a_stream(level):
+    """frame.linked_frame cuts one native stream at inner-block boundaries
+    into 256 KB frame blocks: a linked frame that the JAX decoder and the
+    port decode to the input (the card's full-size phase uses it)."""
+    data = _repetitive(500_000, seed=level) + gen(200_000, seed=level)
+    stream = jrt.compress(data, level)
+    frame = tframe.linked_frame(stream, data, 2)
+    assert tframe.parse_frame_header(frame).block_linked
+    assert len(_frame_blocks(frame)) == 3
+    assert jframe.decompress_frame(frame) == data
+    assert tframe.decompress_frames(frame, device="cpu") == data

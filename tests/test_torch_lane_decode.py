@@ -190,3 +190,24 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out[:1998], plain[0][:1998])
     with pytest.raises(ValueError):
         tld.lz_decode(**{**args, "blocks": args["blocks"].int()})
+
+
+@pytest.mark.parametrize("counts, error", [
+    ((tld.MAX_CHAIN_BLOCKS, 1), "runs on cuda"),
+    ((1, tld.MAX_CHAIN_BLOCKS), "runs on cuda"),
+    ((tld.MAX_CHAIN_BLOCKS + 1,), "inner blocks"),
+    ((2, tld.MAX_CHAIN_BLOCKS + 3), "inner blocks"),
+])
+def test_card_chain_length_limit(counts, error):
+    """The card keeps chain positions in 32 bits: lz_decode_meta refuses a
+    chain of more than MAX_CHAIN_BLOCKS inner blocks before any launch
+    (these CPU tensors then reach the device check instead)."""
+    first = torch.tensor((0,) + counts[:-1]).cumsum(0)
+    chains = torch.stack([first, torch.tensor(counts),
+                          first * tld.LIZARD_BLOCK_SIZE], dim=1)
+    n_blocks = sum(counts)
+    empty = torch.zeros(0, dtype=torch.uint8)
+    with pytest.raises(ValueError, match=error):
+        tld.lz_decode_meta(empty, empty, empty, empty,
+                           torch.zeros((n_blocks, 8), dtype=torch.int64),
+                           chains, 0)
