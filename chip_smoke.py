@@ -20,7 +20,9 @@ on the card, and checks every result against the input bytes:
 4. Huffman full-size decode: the same corpus at levels 35 and 41, decoded
    by decompress_lanes with the default entropy route (huf_decode then
    lz_decode, no host round trip between them); both kernels' times and
-   floors, the steps of the path, and the host-entropy route beside it;
+   floors, the steps of the path, the host-entropy route beside it, and
+   huf_decode's synchronisation rounds per segment (the share that needed
+   the serial fallback);
 5. kernel against plain: lz_decode against lz_decode_plain on the card, on
    the first 64 streams of the batch of levels 10 and 21, and at 35 and 41
    huf_decode against huf_decode_plain and lz_decode against
@@ -39,7 +41,9 @@ on the card, and checks every result against the input bytes:
    the card by encode_blocks_lanes (match_find, chain_walk at 49,
    parse_tokens, native emission, at 35 and 49 the Huff0 stage on the card
    by huf_pack) at levels 11, 21, 35 and 49: end-to-end time, the steps,
-   each kernel's time and HBM floor, the native host encoder beside it, at
+   each kernel's time and HBM floor, parse_tokens' own profile (walker
+   and picker busy shares, walker cycles and ns per token), the native host
+   encoder beside it, at
    35 and 49 the host entropy route beside it (the same bytes), and every
    stream decoded on the card and by the native decoder;
 10. encoder kernels against plain: the four kernels against their plain
@@ -51,7 +55,9 @@ on the card, and checks every result against the input bytes:
 12. encode edge blocks (sizes 0-4097, a run, random, a 4-symbol alphabet,
    a block whose flags stream is one byte value) at 11, 21 and 49, held
    against the plain versions at 11 and 49, each Huff0 gate taken at 49
-   (RLE, not compressible, stored, coded), and 4 MB-block frames at -21
+   (RLE, not compressible, stored, coded); the blocks that bound the
+   parse (tests/torch_cases.py::parse_edge_blocks) at 11, 21, 35 and
+   49, round trip and kernels against plain; and 4 MB-block frames at -21
    and -41 compressed on the card and decoded by the port;
 13. slot-layout batch decode: decode_batch_pallas (ops/pallas_decode.py,
    one lz_decode launch) on the full-size batches of levels 10 and 21:
@@ -66,7 +72,11 @@ on the card, and checks every result against the input bytes:
 15. batch Huff0 decode: huf_decompress_lanes (ops/lane_huf.py, one
    huf_decode launch) on the Huff0 blobs of the level-41 batch, a
    tableLog-12 blob and an RLE blob, blob by blob equal to the native
-   Huff0; huf_decode against huf_decode_plain on that plan;
+   Huff0; huf_decode against huf_decode_plain on that plan, and on the
+   blobs that bound its lane split (tests/torch_cases.py::
+   lane_split_cases: codes that never self-synchronise, 1-bit and 11-bit
+   codes, segments of 1-33 and 25,000 symbols, tableLog 12) with their
+   corruptions;
 16. real files: 16 MB of the Python standard library's files
    (utils/datagen.py::build_corpus_realfiles) at level 49 in 128 KB
    blocks, decoded by decompress_lanes whole and as streams 112-128 alone
@@ -261,6 +271,47 @@ def both_against_plain(th, tld, streams, what: str) -> tuple:
         huf, filled = huf_against_plain(th, batch, plan, what)
         args.update(filled)
     return huf, hold_against_plain(tld, args, what)
+
+
+def huf_sync(th, hargs) -> dict:
+    """The synchronisation rounds of every segment of a staged Huff0 batch
+    (huf_decode_rounds, a comparison launch): how many segments took each
+    count, and the share that needed more than one round (a lane whose
+    path never met the true one inside its range: the serial fallback)."""
+    _, rounds = th.huf_decode_rounds(**hargs)
+    r = rounds.cpu()
+    values, counts = r.unique(return_counts=True)
+    return {"segments_by_rounds": dict(zip(map(str, values.tolist()),
+                                           counts.tolist())),
+            "fallback_share": float((r > 1).double().mean()),
+            "max_rounds": int(r.max())}
+
+
+def huf_lane_split(th) -> dict:
+    """huf_decode against huf_decode_plain on the card on the blobs that
+    bound its lane split and their corruptions
+    (tests/torch_cases.py::lane_split_against_plain: codes of one length
+    that never self-synchronise, a 1-bit code among 11-bit ones, segments
+    of 1-33 and of 25,000 symbols, tableLog 12; a segment cut by a byte,
+    an end mark of 0, a flipped bit, a row out of bounds), and the rounds
+    each case took. Emits and returns the comparison."""
+    import torch
+    from tests.torch_cases import lane_split_against_plain
+    r = lane_split_against_plain(torch.device("cuda"))
+    cases, (data, segs, tables, table_log) = r["cases"], r["args"]
+    out = torch.zeros(sum(len(d) for _, _, d in cases), dtype=torch.uint8,
+                      device="cuda")
+    e = torch.empty(0, dtype=torch.uint8, device="cuda")
+    _, rounds = th.huf_decode_rounds(data, segs[:r["n_ok_rows"]], tables,
+                                     table_log, out, e, e, e)
+    by_case = rounds.cpu().view(-1, 4).max(1).values.tolist()
+    rec = {"what": "lane split cases and corruptions",
+           "cases": [n for n, _, _ in cases], "blobs": r["blobs"],
+           "segments": int(segs.shape[0]), "statuses": r["statuses"],
+           "max_rounds_by_case": dict(zip((n for n, _, _ in cases), by_case)),
+           "max_abs_err": r["max_abs_err"], "plain_ms": r["plain_ms"]}
+    emit("huf_vs_plain", **rec)
+    return rec
 
 
 def huf_floor_bytes(plan) -> tuple[int, int]:
@@ -510,6 +561,7 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
             lambda: te.chain_walk(data, lens, found, cfg), KERNEL_REPS)
     kernel_ms["parse_tokens"] = cuda_ms(
         lambda: te.parse_tokens(data, lens, maps, pcfg), KERNEL_REPS)
+    parse_prof = parse_profile(te, data, lens, maps, pcfg)
     floors = enc_floor_bytes(te, cfg, len(chunks), tokens)
     if huff:
         kernel_ms["huf_pack"] = cuda_ms(lambda: teh.huf_pack(**hargs),
@@ -535,9 +587,26 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
            "hbm_floor_bytes": {k: floors[k] for k in kernel_ms},
            "native_compressed_bytes": sum(map(len, native)),
            "native_ratio": sum(map(len, native)) / size,
-           "native_host_ms": native_ms, "card": smi}
+           "native_host_ms": native_ms, "parse_profile": parse_prof,
+           "card": smi}
     emit("encode", **rec)
     return rec
+
+
+def parse_profile(te, data, lens, maps, pcfg) -> dict:
+    """parse_tokens' own clock (parse_tokens_profile, a comparison launch)
+    on one batch: the walker warp's and the first picking warp's busy
+    share of the blocks' cycles, the walker's cycles, ns (the card's global
+    timer over the same spans) and steps per token, and the SM clock those
+    spans ran at."""
+    tok, counts, prof = te.parse_tokens_profile(data, lens, maps, pcfg)
+    p = prof.cpu().double().sum(0).tolist()
+    tokens = max(int(counts.sum()), 1)
+    return {"walker_share": p[1] / p[0], "picker_share": p[2] / p[0],
+            "walker_cycles_per_token": p[1] / tokens,
+            "walker_ns_per_token": p[4] / tokens,
+            "walker_steps_per_token": p[3] / tokens,
+            "walker_sm_mhz": p[1] / p[4] * 1e3}
 
 
 def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
@@ -571,6 +640,9 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
                               for lv in levels},
         "bound_ms_by_level": {str(lv): enc[lv]["hbm_floor_ms"][wrapper]
                               for lv in levels},
+        **({"profile_by_level": {str(lv): enc[lv]["parse_profile"]
+                                 for lv in levels}}
+           if wrapper == "parse_tokens" else {}),
     }
 
 
@@ -1082,10 +1154,12 @@ def main() -> int:
         steps["d2h_ms"] = (time.perf_counter() - t) * 1e3
         huf_ms = cuda_ms(lambda: huf_decode(**hargs), KERNEL_REPS)
         lz_ms = cuda_ms(lambda: lz_decode(**args), KERNEL_REPS)
+        sync = huf_sync(th, hargs)
         hread, hwritten = huf_floor_bytes(plan)
         huf_bound = (hread + hwritten) / HBM_BYTES_PER_S * 1e3
         lz_bound = lz_floor_ms(args, len(corpus))
-        huf_timing[level] = {"ms": huf_ms, "bound_ms": huf_bound}
+        huf_timing[level] = {"ms": huf_ms, "bound_ms": huf_bound,
+                             "sync": sync}
         timing[level] = {"ms": lz_ms, "bound_ms": lz_bound}
         staged[level] = (streams, args)
         emit("huffman_decode", level=level, streams=len(streams),
@@ -1099,6 +1173,7 @@ def main() -> int:
              huf_launches=launches[0], lz_launches=launches[1],
              huf_kernel_ms=huf_ms, lz_kernel_ms=lz_ms,
              huf_hbm_floor_ms=huf_bound, lz_hbm_floor_ms=lz_bound,
+             huf_sync=sync,
              e2e_ms=statistics.median(e2e_runs), e2e_runs_ms=e2e_runs,
              e2e_gbps=len(corpus) / statistics.median(e2e_runs) / 1e6,
              host_entropy_e2e_ms=statistics.median(host_runs),
@@ -1271,6 +1346,24 @@ def main() -> int:
         emit("encode_edge", level=level, sizes=[len(d) for d in edge],
              compressed=[len(s) for s in streams], launches=launches,
              huf_gates=gates)
+    # the blocks that bound parse_tokens (a run of one byte, random bytes,
+    # matches ending at segment boundaries, lengths 21, 22, 149 and
+    # 128 KB - 1, an off24 repeat) at the four full-size levels: encoded on
+    # the card and decoded back, and the kernels against plain
+    from tests.torch_cases import parse_edge_blocks
+    pblocks = parse_edge_blocks(BLOCK)
+    for level in ENC_LEVELS:
+        cfg = te.cfg_for_level(level)
+        reset_enc_launches(te, teh)
+        streams = te.encode_blocks_lanes(pblocks, level)
+        torch.cuda.synchronize()
+        launches = check_enc_launches(te, teh, cfg, level,
+                                      f"parse edge blocks {level}")
+        if decompress_lanes(streams) != pblocks:
+            raise AssertionError(f"parse edge blocks level {level}: round "
+                                 "trip")
+        note(level, encode_against_plain(te, teh, pblocks, level,
+                                         f"parse edge blocks level {level}"))
     for level in (21, 41):
         reset_enc_launches(te, teh)
         frame = compress_frame_lanes(far, level, block_size_id=4)
@@ -1299,6 +1392,9 @@ def main() -> int:
     lh = lane_huf(th, tlh, runtime, split_into, new_accumulator,
                   staged[HUF_LEVELS[-1]][0], smi)
     huf_err = max(huf_err, lh["max_abs_err"])
+    # and the blobs that bound huf_decode's lane split, against plain
+    ls = huf_lane_split(th)
+    huf_err = max(huf_err, ls["max_abs_err"])
 
     # 16. real files at level 49, the whole batch and streams 112-128
     rf = realfiles(tld, th, runtime, decompress_lanes,
@@ -1408,6 +1504,9 @@ def main() -> int:
         "bound_ms_by_level": {str(lv): huf_timing[lv]["bound_ms"]
                               for lv in HUF_LEVELS},
         "ms_by_path": {"huf_decompress_lanes": lh["kernel_ms"]},
+        "sync_by_level": {str(lv): huf_timing[lv]["sync"]
+                          for lv in HUF_LEVELS},
+        "lane_split_max_rounds": ls["max_rounds_by_case"],
         "plain_ms_by_path": {"huf_decompress_lanes": lh["plain_ms"]},
         "bound_ms_by_path": {"huf_decompress_lanes": lh["hbm_floor_ms"]},
     }] + [encoder_entry(*k, enc, enc_err, enc_plain_ms, len(chunks))

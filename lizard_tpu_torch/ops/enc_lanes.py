@@ -48,6 +48,7 @@ from lizard_tpu_torch.format.constants import (
     FLAG_UNCOMPRESSED,
     HUF_MIN_STREAM_LEN,
     LASTLITERALS,
+    LIZARD_BLOCK_SIZE,
     LIZARD_MIN_LENGTH,
     MFLIMIT,
     MM_LONGOFF,
@@ -510,30 +511,65 @@ def parse_tokens(data, lens, maps, cfg: EncCfg):
     least 4). Counterpart of pA_call/_pA_kernel and of the mirror
     p2_reference.
 
-    CUDA tensors launch csrc/enc_parse.cu on the current stream without
+    CUDA tensors launch csrc/enc_parse.cu (one CTA of 16 warps a block,
+    cfg.n a multiple of 128 up to 128 KB) on the current stream without
     synchronising; CPU tensors run parse_tokens_plain."""
     _check_data(data, lens, cfg)
     _check_maps(maps, data, cfg.ncand, cfg)
     if data.device.type == "cpu":
         return parse_tokens_plain(data, lens, maps, cfg)
+    return _parse_launch(data, lens, maps, cfg, None)
+
+
+def parse_tokens_profile(data, lens, maps, cfg: EncCfg):
+    """parse_tokens on CUDA tensors, with a per-block profile beside the
+    outputs: (tok, counts, prof int64 (B, 5)), prof's columns the block's
+    clock cycles, the cycles its walker warp and its first picking warp
+    were busy, the walker's steps (candidate positions visited) and the
+    walker's busy time in ns on the card's global timer; zeros for a block
+    under 21 bytes. It launches the kernel's profiling instance (the plain
+    call reads no clock). Counts as one parse_tokens call."""
+    _check_data(data, lens, cfg)
+    _check_maps(maps, data, cfg.ncand, cfg)
+    if data.device.type != "cuda":
+        raise ValueError(f"parse_tokens_profile runs on cuda, not "
+                         f"{data.device}")
+    prof = torch.zeros((data.shape[0], 5), dtype=torch.int64,
+                       device=data.device)
+    return (*_parse_launch(data, lens, maps, cfg, prof), prof)
+
+
+def _parse_launch(data, lens, maps, cfg: EncCfg, prof):
+    """One launch of csrc/enc_parse.cu on CUDA tensors; `prof` (int64
+    (B, 5), or None) receives the per-block profile."""
+    if cfg.n % SEG or cfg.n > LIZARD_BLOCK_SIZE or cfg.ncand > 6 \
+            or cfg.lazy > 2:
+        raise ValueError(f"parse_tokens on the card takes blocks of a "
+                         f"multiple of {SEG} bytes up to 128 KB (its shared "
+                         f"memory), at most 6 maps and 2 lazy steps, not "
+                         f"{cfg.n}, {cfg.ncand} and {cfg.lazy}")
+    if data.data_ptr() % 8 or maps.data_ptr() % 16:
+        raise ValueError("parse_tokens on the card reads rows as 8-byte and "
+                         "maps as 16-byte words: pass tensors so aligned")
     B, T = data.shape[0], cfg.max_tokens
-    tok = torch.empty((B, T, 3), dtype=torch.int32, device=data.device)
+    # slot T is the kernel's spare: a step without a token stores there
+    tok = torch.empty((B, T + 1, 3), dtype=torch.int32, device=data.device)
     counts = torch.empty(B, dtype=torch.int32, device=data.device)
     if B == 0:
-        return tok, counts
+        return tok[:, :T], counts
     fn = _build.load("enc_parse").parse_tokens_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4)
     with torch.cuda.device(data.device):
         ptr, stream = _stream_args(data)
         err = fn(ptr, lens.data_ptr(), maps.data_ptr(), B, cfg.n,
                  cfg.n + PAD, cfg.ncand, cfg.lazy, cfg.far, cfg.far_dist, T,
-                 tok.data_ptr(), counts.data_ptr(), stream)
+                 tok.data_ptr(), counts.data_ptr(),
+                 None if prof is None else prof.data_ptr(), stream)
     _raise_on(err, "parse_tokens")
     parse_tokens.launches += 1
-    return tok, counts
+    return tok[:, :T], counts
 
 
 parse_tokens.launches = 0

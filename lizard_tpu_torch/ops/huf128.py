@@ -203,8 +203,29 @@ def _launcher():
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                     ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int64] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 3)
     return fn
+
+
+def _launch(data, segs, tables, table_log, dests, rounds) -> torch.Tensor:
+    """One launch of csrc/huf_decode.cu on CUDA tensors; `rounds` (int32
+    per segment, or None) receives each segment's synchronisation rounds.
+    Returns the status tensor."""
+    status = torch.empty(segs.shape[0], dtype=torch.int32, device=data.device)
+    if segs.shape[0] == 0:
+        return status
+    fn = _launcher()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(data.data_ptr(), data.numel(), segs.data_ptr(),
+                 segs.shape[0], tables.data_ptr(), table_log.data_ptr(),
+                 tables.shape[0], *(t.data_ptr() for t in dests),
+                 *(t.numel() for t in dests), status.data_ptr(),
+                 None if rounds is None else rounds.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"huf_decode launch failed: cudaError {err}")
+    huf_decode.launches += 1
+    return status
 
 
 def huf_decode(data, segs, tables, table_log, flags, literals, off16, off24):
@@ -223,23 +244,27 @@ def huf_decode(data, segs, tables, table_log, flags, literals, off16, off24):
         return huf_decode_plain(data, segs, tables, table_log, *dests)
     if data.device.type != "cuda":
         raise ValueError(f"huf_decode runs on cuda or cpu, not {data.device}")
-    status = torch.empty(segs.shape[0], dtype=torch.int32, device=data.device)
-    if segs.shape[0] == 0:
-        return status
-    fn = _launcher()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(data.data_ptr(), data.numel(), segs.data_ptr(),
-                 segs.shape[0], tables.data_ptr(), table_log.data_ptr(),
-                 tables.shape[0], *(t.data_ptr() for t in dests),
-                 *(t.numel() for t in dests), status.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"huf_decode launch failed: cudaError {err}")
-    huf_decode.launches += 1
-    return status
+    return _launch(data, segs, tables, table_log, dests, None)
 
 
 huf_decode.launches = 0
+
+
+def huf_decode_rounds(data, segs, tables, table_log, flags, literals, off16,
+                      off24):
+    """huf_decode on CUDA tensors, with each segment's synchronisation
+    rounds beside the status: (status, rounds int32 per segment). A segment
+    whose lanes fell into step with the true path at once took 1 round (0
+    if it was not decoded, or its lanes all started on the true path);
+    more rounds mean a lane's path never met it within its range (codes of
+    one length from a misaligned start: up to 31). Counts as one
+    huf_decode call."""
+    dests = (flags, literals, off16, off24)
+    _check(data, segs, tables, table_log, dests)
+    if data.device.type != "cuda":
+        raise ValueError(f"huf_decode runs on cuda or cpu, not {data.device}")
+    rounds = torch.zeros(segs.shape[0], dtype=torch.int32, device=data.device)
+    return _launch(data, segs, tables, table_log, dests, rounds), rounds
 
 # bit_length(b) - 1 for every byte value (-1 for 0)
 _HIGHBIT = torch.tensor([b.bit_length() - 1 for b in range(256)])

@@ -31,6 +31,9 @@ from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
 from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
+from tests.torch_cases import (lane_split_against_plain, lane_split_cases,
+                               parse_edge_blocks, segment_plan,
+                               tablelog12_blob)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,32 +136,6 @@ def test_huf_kernel_matches_plain(level, card):
         before[0] + 1, before[1] + 1)
 
 
-def _tablelog12_blob(data: bytes) -> bytes:
-    """A Huff0 blob of tableLog 12 (the encoder here stops at 11): a raw
-    nibble header with weights 11, 10, ..., 1, 1 for symbols 0..11 (the
-    implied weight of symbol 12 is 12), and four backward bitstreams."""
-    weights = list(range(11, 0, -1)) + [1]
-    header = bytes([127 + len(weights)]) + bytes(
-        (weights[i] << 4) | (weights[i + 1] if i + 1 < len(weights) else 0)
-        for i in range(0, len(weights), 2))
-    table = th.decode_table(weights + [12], 12)
-    code = {}
-    for v, e in enumerate(table.tolist()):
-        code.setdefault(e & 0xFF, (v >> (12 - (e >> 8)), e >> 8))
-    seg = (len(data) + 3) // 4
-    parts = []
-    for k in range(4):
-        acc = nbits = 0
-        for sym in reversed(data[k * seg:(k + 1) * seg]):
-            c, n = code[sym]
-            acc |= c << nbits
-            nbits += n
-        acc |= 1 << nbits                           # end mark
-        parts.append(acc.to_bytes(nbits // 8 + 1, "little"))
-    jump = b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
-    return header + jump + b"".join(parts)
-
-
 def test_huf_kernel_tablelog_12_and_corrupt_status(card):
     """A tableLog-12 blob decodes on the card as in the plain version; a
     segment cut by one byte (its jump table fixed) is not consumed exactly
@@ -167,7 +144,7 @@ def test_huf_kernel_tablelog_12_and_corrupt_status(card):
     data = bytes((12 - torch.multinomial(
         torch.tensor([2.0 ** -k for k in range(13)]), 40_000, True,
         generator=rng)).tolist())
-    blob = _tablelog12_blob(data)
+    blob = tablelog12_blob(data)
     assert th.prepare_huf128([(blob, len(data))]).table_log.tolist() == [12]
     cut = bytearray(blob)
     head = huf_read_stats(blob)[2]                  # the jump table's start
@@ -190,6 +167,38 @@ def test_huf_kernel_tablelog_12_and_corrupt_status(card):
     assert th.huf_decompress_128(blobs[:1]) == [data]
     with pytest.raises(HufError, match="blob 1, segment 0"):
         th.huf_decompress_128(blobs)
+
+
+# ------------------------------------ huf_decode: inputs of the lane split
+
+def test_huf_kernel_lane_split_cases(card):
+    """huf_decode against huf_decode_plain on the card on every lane-split
+    case and their corruptions, plus a row out of bounds: statuses equal,
+    bytes equal wherever the status is OK, and the OK cases equal their
+    data (tests/torch_cases.py::lane_split_against_plain)."""
+    r = lane_split_against_plain(card)
+    assert r["max_abs_err"] == 0 and r["statuses"][-1] == th.ERR_BOUNDS
+
+
+def test_huf_kernel_rounds(card):
+    """The per-segment synchronisation rounds: codes of one length from a
+    misaligned start need many (the serial fallback inside the kernel),
+    text codes fall into step at once."""
+    cases = lane_split_cases()
+    plan = segment_plan([(b, len(d)) for _, b, d in cases])
+    total = sum(len(d) for _, _, d in cases)
+    out = torch.zeros(total, dtype=torch.uint8, device=card)
+    e = torch.empty(0, dtype=torch.uint8, device=card)
+    before = th.huf_decode.launches
+    status, rounds = th.huf_decode_rounds(*(t.to(card) for t in plan), out,
+                                          e, e, e)
+    assert th.huf_decode.launches == before + 1
+    assert (status == th.OK).all()
+    r = rounds.cpu().view(-1, 4).tolist()
+    names = [n for n, _, _ in cases]
+    assert max(r[names.index("equal_8bit")]) > 8
+    assert max(r[names.index("equal_7bit")]) > 8
+    assert max(r[names.index("segments_of_25000")]) <= 2
 
 
 @pytest.mark.parametrize("level", [10, 21])
@@ -233,7 +242,7 @@ def test_lane_huf_matches_huf128_and_native(card):
     data12 = bytes((12 - torch.multinomial(
         torch.tensor([2.0 ** -k for k in range(13)]), 30_000, True,
         generator=rng)).tolist())
-    blobs += [(_tablelog12_blob(data12), len(data12)), (b"\x41", 100)]
+    blobs += [(tablelog12_blob(data12), len(data12)), (b"\x41", 100)]
     before = th.huf_decode.launches
     got = tlh.huf_decompress_lanes(blobs)
     assert th.huf_decode.launches == before + 1
@@ -456,6 +465,25 @@ def test_encoder_kernels_full_geometry(level, card):
     out = ltt_compress(data, level)
     assert out == ltt_compress(data, level, device="cpu")
     assert runtime.decompress(out, len(data)) == data
+
+
+@pytest.mark.parametrize("level", [11, 21, 35, 45, 49])
+def test_parse_kernel_edge_blocks(level, card):
+    """The parse's edge blocks at the level's own geometry, the kernels
+    against their plain versions; the run is one token to lim, the random
+    block almost none, a boundary match ends on a segment end, and at the far
+    levels (21, 45) a token reaches 80,000 bytes back."""
+    cfg = te.cfg_for_level(level)
+    blocks = parse_edge_blocks(cfg.n)
+    toks = _encode_against_plain(blocks, cfg, card)
+    st, ml, off = toks[0]
+    assert len(st) == 1 and st[0] + ml[0] == cfg.n - 16
+    assert len(toks[1][0]) <= 4                      # chance matches
+    st, ml, _ = toks[2]
+    assert ((st + ml) % 128 == 0).any()
+    assert all(len(t[0]) == 0 for t in toks[3:5])
+    if cfg.far:
+        assert (toks[7][2] == 80_000).any()
 
 
 def ltt_compress(data, level, device=None):

@@ -24,6 +24,7 @@ from lizard_tpu_torch.frame import (compress_frame_fast, compress_frame_lanes,
                                     decompress_frame_lanes)
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 from tests.test_enc_lanes import CFG, FAR_CFG, _mk_blocks, _mk_far_blocks
+from tests.torch_cases import parse_edge_blocks
 from tests.test_torch_enc_maps import SWEEP, port_cfg, sweep_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,6 +71,22 @@ def test_parse_far_equals_p2_reference():
     assert got == J.p2_reference(blocks, jcfg, dmap=ref)
     fars = [t for t in got[0] if t[2] >= jcfg.far_dist]
     assert fars and all(t[1] >= 16 for t in fars)
+
+
+@pytest.mark.parametrize("combo", [dict(lazy=True, k5=0),
+                                   dict(lazy=True, k5=4)], ids=str)
+def test_parse_edge_blocks_equal_p2_reference(combo):
+    """The card test's parse edge blocks at the 8 KB geometry (a run of
+    one byte, random bytes, matches ending at segment boundaries, lengths
+    21, 22, 149 and n - 1) through parse_tokens_plain, equal to
+    p2_reference on the mirror's maps."""
+    jcfg = dataclasses.replace(CFG, **combo)
+    blocks = parse_edge_blocks(CFG.n)
+    ref, _ = J.p1_reference(blocks, jcfg)
+    got = tokens_of(blocks, jcfg, ref)
+    assert got == J.p2_reference(blocks, jcfg, dmap=ref)
+    assert len(got[0]) >= 1 and len(got[1]) <= 4
+    assert any((st + ml) % 128 == 0 for st, ml, _ in got[2])
 
 
 def test_token_arrays_copy_the_used_prefix():

@@ -49,7 +49,8 @@ def _imported_modules(path):
 
 
 def test_no_jax_or_reference_imports_in_package_or_chip_smoke():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_cases.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

@@ -7,6 +7,7 @@ and chip_smoke.py hold the CUDA kernel against the same route on the card.
 """
 
 import ast
+import functools
 import os
 
 import numpy as np
@@ -23,6 +24,8 @@ from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops.split import split_stream, new_accumulator
 from lizard_tpu_torch.ref import huf as thuf
 from lizard_tpu_torch.utils.datagen import build_corpus
+from tests.torch_cases import (corrupt_lane_split_cases, lane_split_cases,
+                               segment_plan)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RNG = np.random.default_rng(2)
@@ -284,6 +287,73 @@ def test_plan_and_row_checks():
         [0, 0, th.ERR_BOUNDS, 0, 0, th.ERR_BOUNDS, 0, 0]
     with pytest.raises(HufError, match="blob 0, segment 2: segment table"):
         th.raise_on_status(th.huf_decode(**{**args, "segs": moved}), plan)
+
+
+@functools.cache
+def _lane_split_cases():
+    return lane_split_cases()
+
+
+@pytest.fixture
+def one_thread():
+    """The plain decode runs one small tensor step a symbol; test workers
+    running side by side starve each other with intra-op threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+LANE_SPLIT = ["equal_8bit", "equal_7bit", "one_bit_and_11_bit", "n_out_4",
+              "n_out_124", "n_out_128", "n_out_132", "n_out_125",
+              "segments_of_25000", "tablelog_12"]
+
+
+@pytest.mark.parametrize("name", LANE_SPLIT)
+def test_lane_split_cases_equal_reference(name, one_thread):
+    """The hand-built blobs of the card's lane-split test (codes of one
+    length that never self-synchronise, a 1-bit code among 11-bit ones,
+    segments of 1-33 symbols, 25,000 symbols, tableLog 12) are valid
+    streams: each segment through huf_decode_plain equals the JAX oracle's
+    stream decode (ref/huf.py::_huf_decode_stream), and the blob, where
+    it is shorter than its data, equals ref/huf.py::huf_decompress."""
+    cases = {n: (blob, data) for n, blob, data in _lane_split_cases()}
+    assert sorted(cases) == sorted(LANE_SPLIT)
+    blob, data = cases[name]
+    plan = segment_plan([(blob, len(data))])
+    out = torch.zeros(len(data), dtype=torch.uint8)
+    e = torch.empty(0, dtype=torch.uint8)
+    status = th.huf_decode_plain(*plan, out, e, e, e)
+    assert status.tolist() == [th.OK] * 4
+    assert bytes(out.numpy()) == data
+    weights, tl, h = jhuf.huf_read_stats(blob)
+    assert tl == plan[3].item()
+    sym, bits = jhuf.huf_build_dtable(weights, tl)
+    body = blob[h + 6:]
+    for src_off, ln, _, dst_off, n_out, _ in plan[1].tolist():
+        br = jhuf.BitReader(body[src_off:src_off + ln])
+        assert jhuf._huf_decode_stream(br, n_out, sym, bits, tl) == \
+            data[dst_off:dst_off + n_out]
+    if len(blob) < len(data):
+        assert jhuf.huf_decompress(blob, len(data)) == data
+        assert th.huf_decompress_128([(blob, len(data))], device="cpu") == \
+            [data]
+
+
+def test_lane_split_corruptions_equal_reference(one_thread):
+    """The corrupt lane-split cases: the oracle rejects the cut segment and
+    the zero end mark, and the plain version gives those segments the
+    statuses that the card test expects of the kernel."""
+    bad = corrupt_lane_split_cases(_lane_split_cases())
+    for blob, n in bad[:2]:
+        with pytest.raises(jhuf.HufError):
+            jhuf.huf_decompress(blob, n)
+    plan = segment_plan(bad)
+    out = torch.zeros(sum(n for _, n in bad), dtype=torch.uint8)
+    e = torch.empty(0, dtype=torch.uint8)
+    status = th.huf_decode_plain(*plan, out, e, e, e).tolist()
+    assert status[:8] == [th.ERR_NOT_CONSUMED, 0, 0, 0,
+                          th.ERR_END_MARK, 0, 0, 0]
 
 
 NEW_MODULES = ["device.py", "ref/__init__.py", "ref/huf.py",

@@ -1,0 +1,236 @@
+"""Inputs that bound the port's redesigned kernels, and the check of
+huf_decode against its plain version on them: Huff0 blobs that test the
+lane split of csrc/huf_decode.cu and blocks that bound the parse of
+csrc/enc_parse.cu. The card tests (tests/test_torch_cuda.py), the CPU
+tests that prove the inputs valid (tests/test_torch_huf.py,
+tests/test_torch_enc_parse.py) and chip_smoke.py share them. Imports
+neither JAX nor pytest.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from lizard_tpu_torch.ops import huf128 as th
+from lizard_tpu_torch.ref import huf_encode as hr
+from lizard_tpu_torch.ref.huf import huf_read_stats
+from lizard_tpu_torch.utils.datagen import gen, text_like
+
+# ------------------------------------ huf_decode: inputs of the lane split
+
+
+def huf_blob(header: bytes, data: bytes) -> bytes:
+    """A Huff0 blob of `data` under the weights `header`: the codes read off
+    the decode table (th.decode_table), four backward bitstreams, each with
+    its end mark, and the jump table; no size gate (a blob of 8-bit codes is
+    no shorter than its data)."""
+    weights, tl, _ = huf_read_stats(header + bytes(16))
+    table = th.decode_table(weights, tl)
+    code = {}
+    for v, e in enumerate(table[:1 << tl].tolist()):
+        code.setdefault(e & 0xFF, (v >> (tl - (e >> 8)), e >> 8))
+    seg = (len(data) + 3) // 4
+    parts = []
+    for k in range(4):
+        acc = nbits = 0
+        for sym in reversed(data[k * seg:(k + 1) * seg]):
+            c, n = code[sym]
+            acc |= c << nbits
+            nbits += n
+        acc |= 1 << nbits                           # end mark
+        parts.append(acc.to_bytes(nbits // 8 + 1, "little"))
+    jump = b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
+    return header + jump + b"".join(parts)
+
+
+def tablelog12_blob(data: bytes) -> bytes:
+    """A Huff0 blob of tableLog 12 (the encoder here stops at 11): a raw
+    nibble header with weights 11, 10, ..., 1, 1 for symbols 0..11 (the
+    implied weight of symbol 12 is 12)."""
+    weights = list(range(11, 0, -1)) + [1]
+    header = bytes([127 + len(weights)]) + bytes(
+        (weights[i] << 4) | (weights[i + 1] if i + 1 < len(weights) else 0)
+        for i in range(0, len(weights), 2))
+    return huf_blob(header, data)
+
+
+def equal8_header() -> bytes:
+    """The weights header of 256 symbols of weight 1 (fixed 8-bit codes,
+    tableLog 8): 255 equal weights FSE-coded under a table in which weight
+    1 takes 63 of 64 states, the last weight implied."""
+    norm = [1, 63]
+    ncount = hr.fse_write_ncount(norm, 1, 6)
+    body = hr.fse_compress_using_ctable(bytes([1] * 255),
+                                        hr.FseCTable(norm, 1, 6))
+    return bytes([len(ncount) + len(body)]) + ncount + body
+
+
+def fixed7_header() -> bytes:
+    """Raw-nibble weights of 128 symbols of weight 1: fixed 7-bit codes."""
+    return bytes([127 + 127]) + bytes([0x11] * 63 + [0x10])
+
+
+def counts_header(counts, max_bits: int) -> bytes:
+    """The reference encoder's weights header for symbol counts."""
+    max_sym = len(counts) - 1
+    nb, _, log = hr.huf_build_ctable([int(c) for c in counts], max_sym,
+                                     max_bits)
+    return hr.huf_write_ctable(nb, max_sym, log)
+
+
+def segment_plan(blobs):
+    """(data, segs, tables, table_log) of blobs [(blob, orig)], one after
+    the other in output tensor 0, without prepare_huf128's size gates: the
+    rows the kernel takes for any blob."""
+    parts, rows, tables, logs, at = [], [], [], [], 0
+    cursor = 0
+    for blob, orig in blobs:
+        weights, tl, h = huf_read_stats(blob)
+        body = blob[h:]
+        lens = [int.from_bytes(body[k:k + 2], "little") for k in (0, 2, 4)]
+        lens.append(len(body) - 6 - sum(lens))
+        seg = (orig + 3) // 4
+        off = cursor
+        for k, n_out in enumerate([seg, seg, seg, orig - 3 * seg]):
+            rows.append((off, lens[k], 0, at + k * seg, n_out, len(tables)))
+            off += lens[k]
+        parts.append(body[6:])
+        cursor += len(body) - 6
+        tables.append(th.decode_table(weights, tl))
+        logs.append(tl)
+        at += orig
+    data = np.frombuffer(b"".join(parts), np.uint8).copy()
+    return (torch.from_numpy(data), torch.tensor(rows, dtype=torch.int64),
+            torch.from_numpy(np.stack(tables)),
+            torch.tensor(logs, dtype=torch.int32))
+
+
+def lane_split_cases():
+    """(name, blob, data): blobs that the lane split of huf_decode must get
+    right: codes that never self-synchronise (all 8 bits, all 7 bits), one
+    1-bit code among 11-bit ones, segments of 1, 31, 32 and 33 symbols
+    (and 32, 32, 32, 29), a segment of 25,000 symbols, and tableLog 12."""
+    rng = np.random.default_rng(11)
+    out = []
+    d8 = rng.integers(0, 256, 40_000, np.uint8).tobytes()
+    out.append(("equal_8bit", huf_blob(equal8_header(), d8), d8))
+    d7 = rng.integers(0, 128, 40_001, np.uint8).tobytes()
+    out.append(("equal_7bit", huf_blob(fixed7_header(), d7), d7))
+    counts = [60_000, 1, 1] + [2 ** k for k in range(1, 11)]
+    skew = rng.permutation(np.repeat(np.arange(13, dtype=np.uint8), counts))
+    head = counts_header(counts, 11)
+    assert huf_read_stats(head + bytes(16))[1] == 11
+    out.append(("one_bit_and_11_bit", huf_blob(head, skew.tobytes()),
+                skew.tobytes()))
+    text = text_like(100_000, seed=12)
+    head = counts_header(np.bincount(np.frombuffer(text, np.uint8),
+                                     minlength=256), 11)
+    for n in (4, 124, 128, 132, 125):
+        out.append((f"n_out_{n}", huf_blob(head, text[:n]), text[:n]))
+    out.append(("segments_of_25000", huf_blob(head, text), text))
+    data12 = bytes((12 - torch.multinomial(
+        torch.tensor([2.0 ** -k for k in range(13)]), 30_000, True,
+        generator=torch.Generator().manual_seed(7))).tolist())
+    out.append(("tablelog_12", tablelog12_blob(data12), data12))
+    return out
+
+
+def corrupt_lane_split_cases(cases):
+    """Corrupt versions of the cases: a segment cut by one byte (its jump
+    entry fixed), an end mark of 0 (the kernel's own check: the plan would
+    refuse it), and a byte changed in the middle of a segment."""
+    name, blob, data = cases[-2]                    # segments_of_25000
+    head = huf_read_stats(blob)[2]
+    cut = bytearray(blob)
+    l1 = int.from_bytes(cut[head:head + 2], "little")
+    cut[head:head + 2] = (l1 - 1).to_bytes(2, "little")
+    del cut[head + 6]
+    zero = bytearray(blob)
+    zero[head + 6 + l1 - 1] = 0                     # segment 0's last byte
+    flip = bytearray(blob)
+    flip[head + 6 + l1 + 5000] ^= 0x20              # inside segment 1
+    return [(bytes(b), len(data)) for b in (cut, zero, flip)]
+
+
+def lane_split_against_plain(device) -> dict:
+    """huf_decode against huf_decode_plain, both on `device`, on every
+    lane-split case and their corruptions, plus a row out of bounds:
+    statuses equal (OK for every case, the cut segment not consumed, the
+    zero end mark refused, the last row out of bounds), bytes equal
+    wherever the status is OK, and the OK cases equal to their data.
+    Raises AssertionError on a difference; returns the cases, the plan's
+    tensors on `device`, the statuses, the bytes' largest difference and
+    the plain version's host-clock ms."""
+    cases = lane_split_cases()
+    blobs = [(b, len(d)) for _, b, d in cases]
+    blobs += corrupt_lane_split_cases(cases)
+    data, segs, tables, table_log = segment_plan(blobs)
+    segs[-1, 4] += 10 ** 9                          # past its tensor
+    total = sum(n for _, n in blobs)
+    args = [t.to(device) for t in (data, segs, tables, table_log)]
+    runs = []
+    for fn in (th.huf_decode, th.huf_decode_plain):
+        out = torch.zeros(total, dtype=torch.uint8, device=device)
+        e = torch.empty(0, dtype=torch.uint8, device=device)
+        sync = (torch.cuda.synchronize if args[0].is_cuda
+                else lambda: None)
+        sync()
+        t = time.perf_counter()
+        status = fn(*args, out, e, e, e)
+        sync()
+        runs.append((status.cpu(), out.cpu(),
+                     (time.perf_counter() - t) * 1e3))
+    (ks, ko, _), (ps, po, plain_ms) = runs
+    n_ok = 4 * len(cases)
+    if (not torch.equal(ks, ps) or (ks[:n_ok] != th.OK).any()
+            or ks[n_ok] != th.ERR_NOT_CONSUMED
+            or ks[n_ok + 4] != th.ERR_END_MARK or ks[-1] != th.ERR_BOUNDS):
+        raise AssertionError(f"lane split: statuses {ks.tolist()}, plain "
+                             f"{ps.tolist()}")
+    err = 0
+    for row, st in zip(segs.tolist(), ks.tolist()):
+        if st == th.OK:
+            a, b = row[3], row[3] + row[4]
+            err = max(err, int((ko[a:b].int() - po[a:b].int()).abs().max()))
+    if err:
+        raise AssertionError(f"lane split: bytes differ by up to {err}")
+    if bytes(ko[:sum(len(d) for _, _, d in cases)].numpy()) != b"".join(
+            d for _, _, d in cases):
+        raise AssertionError("lane split: a case differs from its data")
+    return {"cases": cases, "blobs": len(blobs), "args": args,
+            "n_ok_rows": n_ok, "statuses": ks.tolist(), "max_abs_err": err,
+            "plain_ms": plain_ms}
+
+
+# ------------------------------------------- parse_tokens: edge blocks
+
+
+def boundary_block(n: int, seed: int) -> bytes:
+    """n random bytes in which a copy (distance 8-207, 40-189 bytes long)
+    ends every 384 bytes exactly at a 128-byte segment boundary or within 3
+    bytes of one, so matches end at, before and after the segment ends that
+    bound the parse's pick."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, n, np.uint8)
+    for i, k in enumerate(range(2 * 128, n - 128, 3 * 128)):
+        end = k + i % 7 - 3
+        d = 8 + (i * 13) % 200
+        for y in range(end - 40 - (i * 29) % 150, end):
+            x[y] = x[y - d]
+    return x.tobytes()
+
+
+def parse_edge_blocks(n: int) -> list[bytes]:
+    """Blocks of n bytes or fewer that bound the parse's work: a run of one
+    byte (a candidate at every position, one match to lim), random bytes
+    (almost no candidates), matches ending at segment boundaries, lengths
+    21, 22, 149 and n - 1, and a repeat 80,000 bytes back (off24 at the
+    LIZv1 levels; at n = 128 KB)."""
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 256, 40_000, np.uint8).tobytes()
+    far = (a + rng.integers(0, 256, 40_000, np.uint8).tobytes() + a)[:n]
+    return [b"\x07" * n, rng.integers(0, 256, n, np.uint8).tobytes(),
+            boundary_block(n, 1), gen(21, 21, proba=0.5),
+            gen(22, 22, proba=0.5), gen(149, 149, proba=0.5),
+            gen(n - 1, 3, proba=0.6), far]
