@@ -41,9 +41,11 @@ on the card, and checks every result against the input bytes:
    the card by encode_blocks_lanes (match_find, chain_walk at 49,
    parse_tokens, native emission, at 35 and 49 the Huff0 stage on the card
    by huf_pack) at levels 11, 21, 35 and 49: end-to-end time, the steps,
-   each kernel's time and HBM floor, parse_tokens' own profile (walker
-   and picker busy shares, walker cycles and ns per token), the native host
-   encoder beside it, at
+   each kernel's time and HBM floor, the profiling instances' clocks
+   (match_find: the serial table loop's busy share and ns a segment, the
+   worker warps' shares; chain_walk: nodes a position, the delta-load and
+   ranking shares of a walk; parse_tokens: walker and picker busy shares,
+   walker cycles and ns per token), the native host encoder beside it, at
    35 and 49 the host entropy route beside it (the same bytes), and every
    stream decoded on the card and by the native decoder;
 10. encoder kernels against plain: the four kernels against their plain
@@ -56,8 +58,10 @@ on the card, and checks every result against the input bytes:
    a block whose flags stream is one byte value) at 11, 21 and 49, held
    against the plain versions at 11 and 49, each Huff0 gate taken at 49
    (RLE, not compressible, stored, coded); the blocks that bound the
-   parse (tests/torch_cases.py::parse_edge_blocks) at 11, 21, 35 and
-   49, round trip and kernels against plain; and 4 MB-block frames at -21
+   parse (tests/torch_cases.py::parse_edge_blocks) and those that bound
+   match_find and chain_walk (match_edge_blocks; chain_walk also on
+   chain_tail_maps, walks into the zero pad) at 11, 21, 35 and 49, round
+   trip and kernels against plain; and 4 MB-block frames at -21
    and -41 compressed on the card and decoded by the port;
 13. slot-layout batch decode: decode_batch_pallas (ops/pallas_decode.py,
    one lz_decode launch) on the full-size batches of levels 10 and 21:
@@ -130,6 +134,9 @@ ENC_KERNELS = (
      "lizard_tpu/ops/enc_huf.py:41::_henc_kernel", 35),
 )
 ENC_WRAPPERS = ("match_find", "chain_walk", "parse_tokens", "huf_pack")
+# the encode record's profile of each kernel that has a profiling instance
+PROFILES = {"match_find": "match_profile", "chain_walk": "chain_profile",
+            "parse_tokens": "parse_profile"}
 STREAM_BYTES = 8 << 20         # one stream of 64 chained inner blocks
 STREAM_LEVELS = (10, 21, 41)
 STREAM_REPS = 3
@@ -562,6 +569,9 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
     kernel_ms["parse_tokens"] = cuda_ms(
         lambda: te.parse_tokens(data, lens, maps, pcfg), KERNEL_REPS)
     parse_prof = parse_profile(te, data, lens, maps, pcfg)
+    match_prof = match_profile(te, data, lens, cfg)
+    chain_prof = (chain_profile(te, data, lens, found, cfg) if cfg.chain
+                  else None)
     floors = enc_floor_bytes(te, cfg, len(chunks), tokens)
     if huff:
         kernel_ms["huf_pack"] = cuda_ms(lambda: teh.huf_pack(**hargs),
@@ -588,6 +598,7 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
            "native_compressed_bytes": sum(map(len, native)),
            "native_ratio": sum(map(len, native)) / size,
            "native_host_ms": native_ms, "parse_profile": parse_prof,
+           "match_profile": match_prof, "chain_profile": chain_prof,
            "card": smi}
     emit("encode", **rec)
     return rec
@@ -607,6 +618,43 @@ def parse_profile(te, data, lens, maps, pcfg) -> dict:
             "walker_ns_per_token": p[4] / tokens,
             "walker_steps_per_token": p[3] / tokens,
             "walker_sm_mhz": p[1] / p[4] * 1e3}
+
+
+def match_profile(te, data, lens, cfg) -> dict:
+    """match_find's own clock (match_find_profile, a comparison launch) on
+    one batch: the serial table loop's busy share of the blocks' cycles and
+    its ns per segment (the card's global timer), the worker warps' mean
+    busy shares (keys, verify), the share of positions that walked the
+    probe ladder, the blocks' ns per segment, and the SM clock over the
+    loop's spans."""
+    _, prof = te.match_find_profile(data, lens, cfg)
+    p = prof.cpu().double().sum(0).tolist()
+    segs = data.shape[0] * cfg.nseg
+    return {"table_loop_share": p[1] / p[0],
+            "table_loop_ns_per_segment": p[4] / segs,
+            "key_warp_share": p[2] / p[0], "verify_warp_share": p[3] / p[0],
+            "probed_share": p[5] / (data.shape[0] * cfg.n),
+            "block_ns_per_segment": p[6] / segs,
+            "table_loop_sm_mhz": p[1] / p[4] * 1e3}
+
+
+def chain_profile(te, data, lens, maps, cfg) -> dict:
+    """chain_walk's own clock (chain_walk_profile, a comparison launch) on
+    one batch: the nodes walked per position and per walk, the lanes' use
+    of the walk loop's slots (a node or a walk's end), the cycles of a
+    node's delta read and of its ranking (each timed alone) and their
+    shares, and the CTAs' mean ns (a CTA walks 8192 positions)."""
+    _, prof = te.chain_walk_profile(data, lens, maps, cfg)
+    p = prof.cpu().double().sum(0).tolist()
+    node = max(p[1] + p[2], 1)
+    return {"nodes_per_position": p[3] / (data.shape[0] * cfg.n),
+            "nodes_per_walk": p[3] / max(p[4], 1),
+            "walked_share": p[4] / (data.shape[0] * cfg.n),
+            "lane_use": (p[3] + p[4]) / max(p[0], 1),
+            "delta_cycles_per_node": p[1] / max(p[3], 1),
+            "rank_cycles_per_node": p[2] / max(p[3], 1),
+            "delta_share": p[1] / node, "rank_share": p[2] / node,
+            "cta_ns": p[5] / prof.shape[0]}
 
 
 def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
@@ -640,9 +688,9 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
                               for lv in levels},
         "bound_ms_by_level": {str(lv): enc[lv]["hbm_floor_ms"][wrapper]
                               for lv in levels},
-        **({"profile_by_level": {str(lv): enc[lv]["parse_profile"]
+        **({"profile_by_level": {str(lv): enc[lv][PROFILES[wrapper]]
                                  for lv in levels}}
-           if wrapper == "parse_tokens" else {}),
+           if wrapper in PROFILES else {}),
     }
 
 
@@ -1364,6 +1412,36 @@ def main() -> int:
                                  "trip")
         note(level, encode_against_plain(te, teh, pblocks, level,
                                          f"parse edge blocks level {level}"))
+    # the blocks that bound match_find and chain_walk (a run, planted
+    # buckets, lengths 20-22, 1000 and 128 KB - 77, far repeats at the far
+    # table's edges, periods of 128 (also with a count every 8 bytes), 1100
+    # and 136) at the four full-size
+    # levels: round trip and kernels against plain, chain_walk also on
+    # maps whose walks run into the zero pad
+    from tests.torch_cases import chain_tail_maps, match_edge_blocks
+    for level in ENC_LEVELS:
+        cfg = te.cfg_for_level(level)
+        mblocks = match_edge_blocks(cfg.n, cfg.far_dist)
+        reset_enc_launches(te, teh)
+        streams = te.encode_blocks_lanes(mblocks, level)
+        torch.cuda.synchronize()
+        check_enc_launches(te, teh, cfg, level, f"match edge blocks {level}")
+        if decompress_lanes(streams) != mblocks:
+            raise AssertionError(f"match edge blocks level {level}: round "
+                                 "trip")
+        note(level, encode_against_plain(te, teh, mblocks, level,
+                                         f"match edge blocks level {level}"))
+        if cfg.chain:
+            data, lens = te.pack_blocks(mblocks, cfg, "cuda")
+            tail = chain_tail_maps(te.match_find(data, lens, cfg))
+            won = te.chain_walk(data, lens, tail, cfg)
+            err = int((won.long() - te.chain_walk_plain(
+                data, lens, tail, cfg).long()).abs().max())
+            enc_err["chain_walk"] = max(enc_err["chain_walk"], err)
+            if err > ENC_TOLERANCE:
+                raise AssertionError(f"chain_walk on tail maps differs "
+                                     f"from plain by {err}")
+            emit("chain_tail_maps", level=level, max_abs_err=err)
     for level in (21, 41):
         reset_enc_launches(te, teh)
         frame = compress_frame_lanes(far, level, block_size_id=4)

@@ -67,8 +67,6 @@ _CHK2 = 0xC2B2AE3D            # package's int32 values (its comment names
 _CHK3 = 668265263             # xxhash's 0xC2B2AE35, its value is ...3D)
 _M32 = 0xFFFFFFFF
 MAX_PROBES = 16               # probe-ladder slots of the kernels' config
-SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may use
-KEY_BYTES = 6 * SEG * 4       # match_find's per-segment key arrays
 GROUP = 1024                  # blocks per device batch of encode_blocks_lanes
 
 
@@ -215,13 +213,6 @@ def _raise_on(err: int, name: str):
 
 # ------------------------------------------------------ B5: match_find
 
-def _table_in_global(cfg: EncCfg) -> bool:
-    """match_find keeps its hash tables in shared memory when they fit
-    (hl 13 with up to 6 tables, hl 15 with one), else in a per-block slice
-    of a global scratch tensor (hl 16)."""
-    return (cfg.ntab << cfg.hl) * 4 + KEY_BYTES > SMEM_LIMIT
-
-
 def _match_params(cfg: EncCfg):
     if len(cfg.probes) > MAX_PROBES:
         raise ValueError(f"at most {MAX_PROBES} probes")
@@ -230,6 +221,9 @@ def _match_params(cfg: EncCfg):
     if cfg.n % SEG or cfg.far_dist % SEG or not 8 <= cfg.hl <= 16:
         raise ValueError("n and far_dist must be multiples of 128, "
                          "8 <= hl <= 16")
+    if cfg.maxoff > 0xFFFF or not all(0 < d <= 0xFFFF for d in cfg.probes):
+        raise ValueError("maxoff and the probes must fit the uint16 maps, "
+                         "probes > 0")
     vals = [cfg.n, cfg.n + PAD, cfg.hl, cfg.maxoff, cfg.min_offset,
             cfg.k5, cfg.far, cfg.far_dist, cfg.chain, cfg.nmaps,
             len(cfg.probes)]
@@ -249,31 +243,65 @@ def match_find(data, lens, cfg: EncCfg) -> torch.Tensor:
     _check_data(data, lens, cfg)
     if data.device.type == "cpu":
         return match_find_plain(data, lens, cfg)
+    return _match_launch(data, lens, cfg, None)
+
+
+match_find.launches = 0
+
+
+def match_find_profile(data, lens, cfg: EncCfg):
+    """match_find on CUDA tensors, with a per-block profile beside the maps:
+    (maps, prof int64 (B, 7)), prof's columns the block's clock cycles, the
+    table loop's busy cycles (its lookups, barriers and inserts), a worker
+    warp's busy cycles in key work and in verify work (means over the
+    worker warps), the table loop's busy ns on the card's global timer, the
+    positions that walked the probe ladder, and the block's ns. It launches
+    the kernel's profiling instance (the plain call reads no clock). Counts
+    as one match_find call."""
+    _check_data(data, lens, cfg)
+    if data.device.type != "cuda":
+        raise ValueError(f"match_find_profile runs on cuda, not "
+                         f"{data.device}")
+    prof = torch.zeros((data.shape[0], 7), dtype=torch.int64,
+                       device=data.device)
+    return _match_launch(data, lens, cfg, prof), prof
+
+
+def _match_launch(data, lens, cfg: EncCfg, prof):
+    """One launch of csrc/enc_match.cu on CUDA tensors; `prof` (int64
+    (B, 7), or None) receives the per-block profile. The tables' global
+    scratch, where the kernel keeps them there (hl 16), is a torch.empty
+    tensor of the size the kernel asks for."""
     params = _match_params(cfg)
+    if data.data_ptr() % 8:
+        raise ValueError("match_find on the card reads rows as aligned "
+                         "words: pass an 8-byte aligned data tensor")
     B = data.shape[0]
     maps = torch.empty((B, cfg.nmaps, cfg.n), dtype=torch.uint16,
                        device=data.device)
     if B == 0:
         return maps
-    scratch = (torch.empty(B * cfg.ntab << cfg.hl, dtype=torch.int32,
-                           device=data.device)
-               if _table_in_global(cfg) else None)
-    fn = _build.load("enc_match").match_find_launch
+    lib = _build.load("enc_match")
+    size = lib.match_find_table_bytes
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_void_p]
+    table_bytes = size(ctypes.cast(params, ctypes.c_void_p))
+    tables = (torch.empty(B * table_bytes // 4, dtype=torch.int32,
+                          device=data.device) if table_bytes else None)
+    fn = lib.match_find_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     with torch.cuda.device(data.device):
         ptr, stream = _stream_args(data)
         err = fn(ptr, lens.data_ptr(), B,
                  ctypes.cast(params, ctypes.c_void_p), maps.data_ptr(),
-                 scratch.data_ptr() if scratch is not None else None, stream)
+                 None if tables is None else tables.data_ptr(),
+                 None if prof is None else prof.data_ptr(), stream)
     _raise_on(err, "match_find")
     match_find.launches += 1
     return maps
-
-
-match_find.launches = 0
 
 
 def _words(data):
@@ -424,6 +452,42 @@ def chain_walk(data, lens, maps, cfg: EncCfg) -> torch.Tensor:
         raise ValueError("chain_walk needs cfg.chain > 0")
     if data.device.type == "cpu":
         return chain_walk_plain(data, lens, maps, cfg)
+    return _chain_launch(data, maps, cfg, None)
+
+
+chain_walk.launches = 0
+
+
+def chain_walk_profile(data, lens, maps, cfg: EncCfg):
+    """chain_walk on CUDA tensors, with a profile beside the output: (out,
+    prof int64 (CTAs, 6)), one row per CTA (a slice of 8192 positions of a
+    block, the slices of block b in rows b * slices ...), its columns the
+    lane slots of the walk loop (32 an iteration of a warp), the clock
+    cycles of the nodes' delta reads and of their ranking (each timed
+    alone), the nodes walked, the positions walked (a candidate in map 0),
+    and the CTA's ns on the card's global timer. It launches the kernel's
+    profiling instance (the plain call reads no clock). Counts as one
+    chain_walk call."""
+    _check_data(data, lens, cfg)
+    _check_maps(maps, data, cfg.nmaps, cfg)
+    if data.device.type != "cuda" or not cfg.chain:
+        raise ValueError("chain_walk_profile runs on cuda with cfg.chain > 0")
+    ctas = _build.load("enc_chain").chain_walk_ctas(data.shape[0], cfg.n)
+    prof = torch.zeros((ctas, 6), dtype=torch.int64, device=data.device)
+    return _chain_launch(data, maps, cfg, prof), prof
+
+
+def _chain_launch(data, maps, cfg: EncCfg, prof):
+    """One launch of csrc/enc_chain.cu on CUDA tensors (one CTA a slice of
+    8192 positions, its 64 KB window in shared memory); `prof` (int64, one
+    row per CTA, or None) receives the profile."""
+    if cfg.n % SEG or cfg.pref > 16 or cfg.maxoff > 0xFFFF:
+        raise ValueError(f"chain_walk on the card takes blocks of a multiple "
+                         f"of {SEG} bytes, pref <= 16 and maxoff <= 65535, "
+                         f"not {cfg.n}, {cfg.pref} and {cfg.maxoff}")
+    if data.data_ptr() % 8 or maps.data_ptr() % 16:
+        raise ValueError("chain_walk on the card reads rows as 8-byte and "
+                         "maps as 16-byte words: pass tensors so aligned")
     B = data.shape[0]
     out = torch.empty((B, cfg.ncand, cfg.n), dtype=torch.uint16,
                       device=data.device)
@@ -432,18 +496,16 @@ def chain_walk(data, lens, maps, cfg: EncCfg) -> torch.Tensor:
     fn = _build.load("enc_chain").chain_walk_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 3)
     with torch.cuda.device(data.device):
         ptr, stream = _stream_args(data)
         err = fn(ptr, maps.data_ptr(), B, cfg.n, cfg.n + PAD, cfg.nmaps,
                  cfg.ncand, cfg.chain, cfg.pref, cfg.maxoff,
-                 out.data_ptr(), stream)
+                 out.data_ptr(), None if prof is None else prof.data_ptr(),
+                 stream)
     _raise_on(err, "chain_walk")
     chain_walk.launches += 1
     return out
-
-
-chain_walk.launches = 0
 
 
 def chain_walk_plain(data, lens, maps, cfg: EncCfg) -> torch.Tensor:

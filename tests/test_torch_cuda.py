@@ -31,7 +31,8 @@ from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
 from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
-from tests.torch_cases import (lane_split_against_plain, lane_split_cases,
+from tests.torch_cases import (chain_tail_maps, lane_split_against_plain,
+                               lane_split_cases, match_edge_blocks,
                                parse_edge_blocks, segment_plan,
                                tablelog12_blob)
 
@@ -484,6 +485,41 @@ def test_parse_kernel_edge_blocks(level, card):
     assert all(len(t[0]) == 0 for t in toks[3:5])
     if cfg.far:
         assert (toks[7][2] == 80_000).any()
+
+
+@pytest.mark.parametrize("level,tier", [
+    (11, {}), (21, {}), (35, {}), (45, {}), (49, {}),
+    (45, dict(hl=16)),                  # six 2^16 tables: global memory
+], ids=str)
+def test_match_chain_kernels_edge_blocks(level, tier, card):
+    """The blocks that bound match_find's and chain_walk's designs at the
+    level's own geometry (x8-x9: one 2^16 table; 45 at hl 16: six), the
+    kernels against their plain versions, chain_walk also on tail maps
+    whose prefixes run into the zero pad; the profiling instances give the
+    same outputs; the streams decode."""
+    cfg = dataclasses.replace(te.cfg_for_level(level), **tier)
+    blocks = match_edge_blocks(cfg.n, cfg.far_dist)
+    data, lens = te.pack_blocks(blocks, cfg, card)
+    maps = te.match_find(data, lens, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(maps, te.match_find_plain(data, lens, cfg))
+    pmaps, prof = te.match_find_profile(data, lens, cfg)
+    assert torch.equal(pmaps, maps)
+    p = prof.cpu()
+    assert (p[:, 1] > 0).all() and (p[:, 1] <= p[:, 0]).all()
+    if cfg.chain:
+        for m in (maps, chain_tail_maps(maps)):
+            won = te.chain_walk(data, lens, m, cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(won, te.chain_walk_plain(data, lens, m, cfg))
+            pwon, prof = te.chain_walk_profile(data, lens, m, cfg)
+            assert torch.equal(pwon, won)
+        nodes = prof.cpu().view(len(blocks), -1, 6).sum(1)[:, 3]
+        assert nodes[9] > cfg.chain * cfg.n // 4         # counted period
+    if not tier:
+        streams = te.encode_blocks_lanes(blocks, level)
+        assert [runtime.decompress(s, max(len(d), 1))
+                for s, d in zip(streams, blocks)] == blocks
 
 
 def ltt_compress(data, level, device=None):

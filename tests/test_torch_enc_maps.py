@@ -2,7 +2,8 @@
 the level table, match_find (B5) against p1_reference and the Pallas
 p1_call in interpret mode, and chain_walk (B6) against p15_reference, at
 tolerance 0, on the shrunken geometry of tests/test_enc_lanes.py (8 KB
-blocks, 2^10 tables) and once at full geometry."""
+blocks, 2^10 tables) and at full geometry; the blocks that bound the
+kernels' designs (tests/torch_cases.py::match_edge_blocks) at both."""
 
 import dataclasses
 
@@ -14,6 +15,7 @@ import lizard_tpu.ops.enc_lanes as J
 from lizard_tpu.utils.datagen import gen, text_like
 import lizard_tpu_torch.ops.enc_lanes as P
 from tests.test_enc_lanes import CFG, FAR_CFG, _mk_blocks, _mk_far_blocks
+from tests.torch_cases import chain_tail_maps, match_edge_blocks
 
 PORT_FIELDS = [f.name for f in dataclasses.fields(P.EncCfg)]
 
@@ -169,6 +171,70 @@ def test_full_geometry(level):
         assert (toks[1][2] >= 65536).any()             # off24 tokens
 
 
+def edge_against_mirrors(jcfg, blocks):
+    """match_find (and at chain tiers chain_walk, on its maps and on
+    chain_tail_maps of them) on `blocks` against p1_reference and
+    p15_reference, 8 blocks a call (the mirrors' batch). Returns the maps
+    and the walked maps."""
+    cfg = port_cfg(jcfg)
+    got, walked = [], []
+    for at in range(0, len(blocks), 8):
+        part = blocks[at:at + 8]
+        ref, _ = J.p1_reference(part, jcfg)
+        data, lens = P.pack_blocks(part, cfg)
+        maps = P.match_find(data, lens, cfg)
+        assert torch.equal(maps, P.maps_from_reference(ref, cfg)[:len(part)])
+        got.append(maps)
+        if not cfg.chain:
+            continue
+        for m in (maps, chain_tail_maps(maps)):
+            dmap = np.zeros((8, cfg.nmaps, cfg.n), np.int64)
+            dmap[:len(part)] = m.numpy()
+            won = P.chain_walk(data, lens, m, cfg)
+            want = P.maps_from_reference(
+                J.p15_reference(part, jcfg, dmap=dmap))[:len(part)]
+            assert torch.equal(won, want)
+            walked.append(won)
+    return torch.cat(got), walked
+
+
+@pytest.mark.parametrize("name,jcfg", [
+    ("base", CFG),
+    ("k5=1", dataclasses.replace(CFG, k5=1, lazy=1)),
+    ("k5=4", dataclasses.replace(CFG, k5=4, lazy=2)),
+    ("far", FAR_CFG),
+    ("far k5=4", dataclasses.replace(FAR_CFG, k5=4, lazy=2)),
+    ("chain 16", dataclasses.replace(CFG, chain=16, lazy=2)),
+    ("chain 64 pref 16", dataclasses.replace(CFG, chain=64, pref=16, lazy=2,
+                                             maxoff=65535)),
+])
+def test_match_edge_blocks_equal_mirrors(name, jcfg):
+    """The blocks that bound the kernels' designs, at the small geometry:
+    maps and walks equal the mirrors'; the cases take what they are for."""
+    blocks = match_edge_blocks(jcfg.n, jcfg.far_dist)
+    maps, walked = edge_against_mirrors(jcfg, blocks)
+    cfg = port_cfg(jcfg)
+    m0 = maps[:, 0].to(torch.int32)
+    assert (m0[0] > 0).sum() == cfg.n - 20 - cfg.min_offset   # the run
+    # two kept lanes in segment 1: segment 2 finds segment 0's word
+    assert m0[1, 276] == 276 - 10 and m0[1, 178] == 178 - 10
+    assert not m0[2:5].any() and m0[5, :1000 - 20].any()   # len 20-22, 1000
+    if cfg.far:
+        far = maps[7, cfg.nmaps - 1].to(torch.int32)
+        assert far.any() and int(far.max()) <= cfg.far_dist - 1
+    if cfg.chain:
+        assert not torch.equal(walked[0][:, 0], maps[:8, 0])  # the walk moved
+
+
+def test_match_edge_blocks_full_geometry():
+    """The edge blocks at level 49's geometry (2^16 table, 64-step chains,
+    pref 16): maps and walks equal the mirrors'."""
+    jcfg = J.cfg_for_level(49)
+    blocks = match_edge_blocks(jcfg.n, jcfg.far_dist)
+    maps, _ = edge_against_mirrors(jcfg, blocks[:1] + blocks[8:11])
+    assert maps[:, 1].any()                              # delta maps
+
+
 def test_maps_from_reference():
     one = np.zeros((2, CFG.n), np.int64)
     one[1, 5] = 65535
@@ -195,6 +261,17 @@ def test_wrappers_check_inputs():
         P.chain_walk(data, lens, maps, cfg)
     with pytest.raises(ValueError, match="cfg.n"):
         P.pack_blocks([bytes(cfg.n + 1)], cfg)
+
+
+def test_profiles_run_on_the_card_only():
+    """The profiling instances have no plain version: CPU tensors raise."""
+    cfg = port_cfg(dataclasses.replace(CFG, chain=2, lazy=1))
+    data, lens = P.pack_blocks(_mk_blocks(2)[:2], cfg)
+    maps = P.match_find(data, lens, cfg)
+    with pytest.raises(ValueError, match="cuda"):
+        P.match_find_profile(data, lens, cfg)
+    with pytest.raises(ValueError, match="cuda"):
+        P.chain_walk_profile(data, lens, maps, cfg)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -1,10 +1,12 @@
 """Inputs that bound the port's redesigned kernels, and the check of
 huf_decode against its plain version on them: Huff0 blobs that test the
-lane split of csrc/huf_decode.cu and blocks that bound the parse of
-csrc/enc_parse.cu. The card tests (tests/test_torch_cuda.py), the CPU
-tests that prove the inputs valid (tests/test_torch_huf.py,
-tests/test_torch_enc_parse.py) and chip_smoke.py share them. Imports
-neither JAX nor pytest.
+lane split of csrc/huf_decode.cu, blocks that bound the parse of
+csrc/enc_parse.cu, and blocks (and tail maps) that bound the match finder
+of csrc/enc_match.cu and the chain walk of csrc/enc_chain.cu. The card
+tests (tests/test_torch_cuda.py), the CPU tests that prove the inputs valid
+(tests/test_torch_huf.py, tests/test_torch_enc_parse.py,
+tests/test_torch_enc_maps.py) and chip_smoke.py share them. Imports neither
+JAX nor pytest.
 """
 
 import time
@@ -234,3 +236,74 @@ def parse_edge_blocks(n: int) -> list[bytes]:
             boundary_block(n, 1), gen(21, 21, proba=0.5),
             gen(22, 22, proba=0.5), gen(149, 149, proba=0.5),
             gen(n - 1, 3, proba=0.6), far]
+
+
+# ------------------------------- match_find and chain_walk: edge blocks
+
+
+def match_edge_blocks(n: int, far_dist: int = None) -> list[bytes]:
+    """Blocks of n bytes or fewer that bound the match finder and the chain
+    walk (far_dist: the far table's delay, default n // 2):
+
+    - a run of one byte: a segment's 128 lanes share one bucket, only lane
+      127 is kept;
+    - random bytes with one 5-byte word planted once in segment 0, twice in
+      segment 1 (two kept lanes in one bucket: the old entry stays, so
+      segment 2 finds segment 0's), then once in each of several
+      consecutive segments (a bucket inserted segment after segment);
+    - lengths 20, 21, 22, 1000 and n - 77 (emit_ok and the ungated delta
+      map around len, lengths not a multiple of 128);
+    - random bytes with 24-byte repeats at distances far_dist, far_dist + 1,
+      + 127, + 128, + 1000 and 2 * far_dist - 2 (those that fit), each
+      landing on lanes 112-135 of its segment (chk13's lanes 116-127 mix
+      words from the segment's start);
+    - a period of 128 random bytes (every segment inserts every bucket:
+      every node ties at pref bytes, so a walk ends at its candidate); the
+      same with a count of the period in every 8th byte (the words between
+      the counts repeat and match 7 bytes: chains of the full 64 steps,
+      every node tying below pref); a period of 1100 (chains stopped by
+      maxoff 65535); and a period of 136 with one byte changed in every
+      third period (nodes of different prefix lengths, and ties between
+      them)."""
+    fd = far_dist or n // 2
+    rng = np.random.default_rng(n + 5)
+    out = [b"\x07" * n]
+    x = rng.integers(0, 256, n, np.uint8)
+    word = np.frombuffer(b"WXYZ\x55", np.uint8)
+    spots = [10, 133, 178, 276] + [s * 128 + 64 + s
+                                   for s in range(3, min(12, n // 128 - 1))]
+    for at in spots:
+        x[at:at + 5] = word
+    out.append(x.tobytes())
+    out += [gen(k, k, proba=0.6) for k in (20, 21, 22, 1000, n - 77)]
+    y = rng.integers(0, 256, n, np.uint8)
+    dists = [d for d in (fd, fd + 1, fd + 127, fd + 128, fd + 1000,
+                         2 * fd - 2) if d + 24 < n - 384]
+    for k, d in enumerate(dists):
+        at = n - 384 * (k + 1) + 112
+        if at - d >= 0:
+            y[at:at + 24] = y[at - d:at - d + 24]
+    out.append(y.tobytes())
+    base = rng.integers(0, 256, 1100, np.uint8)
+    out.append(np.resize(base[:128], n).tobytes())
+    counted = np.resize(base[:128], n).copy()
+    counted[::8] = (np.arange(n // 8) // 16).astype(np.uint8)
+    out.append(counted.tobytes())
+    out.append(np.resize(base, n).tobytes())
+    z = np.resize(base[:136], n).copy()
+    z[9::408] ^= 0x20
+    out.append(z.tobytes())
+    return out
+
+
+def chain_tail_maps(maps: torch.Tensor) -> torch.Tensor:
+    """A copy of (B, nmaps, n) maps whose last 24 positions of every block
+    have a map-0 candidate (distance 1-24) and a delta of 8: walks whose
+    prefixes run into the zero pad past the row, which maps from
+    match_find never give (its candidates stop 20 bytes before len)."""
+    m = maps.clone()
+    n = m.shape[2]
+    tail = torch.arange(24, 0, -1, dtype=torch.int32)
+    m[:, 0, n - 24:] = tail.to(torch.uint16)
+    m[:, -1, n - 24:] = 8
+    return m
