@@ -45,7 +45,11 @@ on the card, and checks every result against the input bytes:
    (match_find: the serial table loop's busy share and ns a segment, the
    worker warps' shares; chain_walk: nodes a position, the delta-load and
    ranking shares of a walk; parse_tokens: walker and picker busy shares,
-   walker cycles and ns per token), the native host encoder beside it, at
+   walker cycles and ns per token; huf_pack: the set-up, load, lookup and
+   count, scan, scatter and store shares of a block's cycles, rounds and
+   warp steps a segment; the call's device time, calls issued back to
+   back, and a memset of the same words beside it, what the prep kernel's
+   zeroing costs), the native host encoder beside it, at
    35 and 49 the host entropy route beside it (the same bytes), and every
    stream decoded on the card and by the native decoder;
 10. encoder kernels against plain: the four kernels against their plain
@@ -61,8 +65,11 @@ on the card, and checks every result against the input bytes:
    parse (tests/torch_cases.py::parse_edge_blocks) and those that bound
    match_find and chain_walk (match_edge_blocks; chain_walk also on
    chain_tail_maps, walks into the zero pad) at 11, 21, 35 and 49, round
-   trip and kernels against plain; and 4 MB-block frames at -21
-   and -41 compressed on the card and decoded by the port;
+   trip and kernels against plain; the plans that bound huf_pack's split
+   (huf_pack_cases: segment lengths around its steps, rounds and word
+   buffer, 1- to 32-bit codes, overflow, a missing code in the last step,
+   rows out of bounds) against plain; and 4 MB-block frames at -21 and -41
+   compressed on the card and decoded by the port;
 13. slot-layout batch decode: decode_batch_pallas (ops/pallas_decode.py,
    one lz_decode launch) on the full-size batches of levels 10 and 21:
    every block equals its input and lz_decode's output on the same staged
@@ -136,7 +143,7 @@ ENC_KERNELS = (
 ENC_WRAPPERS = ("match_find", "chain_walk", "parse_tokens", "huf_pack")
 # the encode record's profile of each kernel that has a profiling instance
 PROFILES = {"match_find": "match_profile", "chain_walk": "chain_profile",
-            "parse_tokens": "parse_profile"}
+            "parse_tokens": "parse_profile", "huf_pack": "huf_profile"}
 STREAM_BYTES = 8 << 20         # one stream of 64 chained inner blocks
 STREAM_LEVELS = (10, 21, 41)
 STREAM_REPS = 3
@@ -342,6 +349,7 @@ def enc_launches(te, teh) -> tuple[int, int, int, int]:
 def reset_enc_launches(te, teh) -> None:
     te.match_find.launches = te.chain_walk.launches = 0
     te.parse_tokens.launches = teh.huf_pack.launches = 0
+    teh.huf_pack.kernel_launches = 0
 
 
 def check_enc_launches(te, teh, cfg, level: int,
@@ -483,6 +491,7 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
     torch.cuda.synchronize()
     launches = check_enc_launches(te, teh, cfg, level,
                                   f"encode level {level}")
+    huf_kernels = teh.huf_pack.kernel_launches
     e2e_runs = e2e_encode_ms(te, chunks, level)
     host_runs = None
     if huff:
@@ -573,10 +582,12 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
     chain_prof = (chain_profile(te, data, lens, found, cfg) if cfg.chain
                   else None)
     floors = enc_floor_bytes(te, cfg, len(chunks), tokens)
+    huf_prof = None
     if huff:
         kernel_ms["huf_pack"] = cuda_ms(lambda: teh.huf_pack(**hargs),
                                         KERNEL_REPS)
         floors["huf_pack"] = huf["floor_bytes"]
+        huf_prof = huf_profile(teh, hargs, kernel_ms["huf_pack"])
     bound_ms = {k: floors[k] / HBM_BYTES_PER_S * 1e3 for k in kernel_ms}
     t = time.perf_counter()
     native = [runtime.compress(c, level) for c in chunks]
@@ -587,6 +598,7 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
     rec = {"level": level, "blocks": len(chunks), "bytes": size,
            "compressed_bytes": comp, "ratio": comp / size,
            "tokens": tokens, "launches": dict(zip(ENC_WRAPPERS, launches)),
+           "huf_pack_kernel_launches": huf_kernels,
            "e2e_ms": e2e, "e2e_runs_ms": e2e_runs,
            "e2e_gbps": size / e2e / 1e6,
            "host_entropy_e2e_ms": (statistics.median(host_runs)
@@ -599,7 +611,7 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
            "native_ratio": sum(map(len, native)) / size,
            "native_host_ms": native_ms, "parse_profile": parse_prof,
            "match_profile": match_prof, "chain_profile": chain_prof,
-           "card": smi}
+           "huf_profile": huf_prof, "card": smi}
     emit("encode", **rec)
     return rec
 
@@ -657,11 +669,54 @@ def chain_profile(te, data, lens, maps, cfg) -> dict:
             "cta_ns": p[5] / prof.shape[0]}
 
 
+def burst_ms(fn, burst: int = 10) -> float:
+    """Median over KERNEL_REPS of the CUDA-event milliseconds of `burst`
+    calls issued back to back, over `burst`: the device's time a call, the
+    host's time to issue one hidden behind the calls before it."""
+    return cuda_ms(lambda: [fn() for _ in range(burst)], KERNEL_REPS) / burst
+
+
+def huf_profile(teh, hargs, kernel_ms: float) -> dict:
+    """huf_pack's own clock (huf_pack_profile, a comparison launch) on one
+    batch: the shares of the pack blocks' cycles (thread 0's, summed over
+    the blocks, one a segment) in setting up (row, table, buffer), loading
+    the symbols, looking up and counting their bits, the scan across the
+    block (its barriers, so the wait for the block's slowest warp,
+    included), scattering the codes into shared memory and storing the
+    words; rounds and warp steps a segment (means); the blocks' mean and
+    longest ns (global timer); the SM clock. Beside it the call's device
+    time (burst_ms) and a memset of the same words alone (what the prep
+    kernel's zeroing of them costs), each with its share of `kernel_ms`,
+    the call as cuda_ms times it."""
+    import torch
+    *_, prof = teh.huf_pack_profile(**hargs)
+    p = prof.cpu().double()
+    p = p[p[:, 0] > 0]
+    c = p.sum(0).tolist()
+    device_ms = burst_ms(lambda: teh.huf_pack(**hargs))
+    words = torch.empty(hargs["n_words"], dtype=torch.int32, device="cuda")
+    zero_ms = burst_ms(words.zero_)
+    return {"setup_share": c[1] / c[0], "load_share": c[2] / c[0],
+            "count_share": c[3] / c[0], "scan_share": c[4] / c[0],
+            "scatter_share": c[5] / c[0], "store_share": c[6] / c[0],
+            "rounds_per_segment": c[7] / p.shape[0],
+            "steps_per_segment": float(
+                ((hargs["segs"][:, 1] + teh.PACK_STEP - 1)
+                 // teh.PACK_STEP).double().mean()),
+            "block_ns_mean": c[8] / p.shape[0],
+            "block_ns_max": float(p[:, 8].max()),
+            "sm_mhz": c[0] / c[8] * 1e3,
+            "device_ms": device_ms, "device_share": device_ms / kernel_ms,
+            "zero_words_ms": zero_ms, "zero_words_share": zero_ms / kernel_ms}
+
+
 def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
                   enc_plain_ms, n_blocks) -> dict:
     """The kernels-line entry of one encoder kernel from the full-size
     encode records `enc` (launches summed over their main-path runs)."""
     levels = [lv for lv in ENC_LEVELS if wrapper in enc[lv]["kernel_ms"]]
+    launches = sum(enc[lv]["launches"][wrapper] for lv in ENC_LEVELS)
+    kernels = sum(enc[lv]["huf_pack_kernel_launches"] for lv in ENC_LEVELS)
     shape = f"level {main_level}, {n_blocks} blocks x 128 KB"
     if wrapper == "huf_pack":
         shape += (f": {enc[main_level]['huf']['coded_streams']} Huff0 "
@@ -672,7 +727,7 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
         "route": "cuda",
         "source": f"lizard_tpu_torch/csrc/{src}.cu",
         "replaces": replaces,
-        "launches": sum(enc[lv]["launches"][wrapper] for lv in ENC_LEVELS),
+        "launches": launches,
         "max_abs_err": enc_err[wrapper],
         "tolerance": ENC_TOLERANCE,
         "matches_plain": enc_err[wrapper] <= ENC_TOLERANCE,
@@ -682,6 +737,9 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
         "bound_by": "bytes",
         "library_ms": None,
         "shape": shape,
+        **({"kernel_launches": kernels,
+            "kernel_launches_per_call": kernels / max(launches, 1)}
+           if wrapper == "huf_pack" else {}),
         "ms_by_level": {str(lv): enc[lv]["kernel_ms"][wrapper]
                         for lv in levels},
         "plain_ms_by_level": {str(lv): enc_plain_ms[wrapper][lv]
@@ -1442,6 +1500,13 @@ def main() -> int:
                 raise AssertionError(f"chain_walk on tail maps differs "
                                      f"from plain by {err}")
             emit("chain_tail_maps", level=level, max_abs_err=err)
+    # the plans that bound huf_pack's split, against plain
+    from tests.torch_cases import huf_pack_against_plain
+    hp = huf_pack_against_plain("cuda")
+    enc_err["huf_pack"] = max(enc_err["huf_pack"], hp["max_abs_err"])
+    emit("huf_pack_cases", **{k: hp[k] for k in (
+        "cases", "segments", "statuses", "max_abs_err", "plain_ms",
+        "calls")})
     for level in (21, 41):
         reset_enc_launches(te, teh)
         frame = compress_frame_lanes(far, level, block_size_id=4)

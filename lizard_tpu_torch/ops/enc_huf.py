@@ -15,13 +15,19 @@ segment's codes into 32-bit little-endian words; `finish` cuts the words
 into bitstreams and assembles the blobs with the reference's last gates.
 None of the TPU layout is kept: no 8-stream sublane packing, no (8, 128)
 tiles, no host reordering of the symbols (the kernel reads them backwards).
+The pack kernel packs a segment with a thread block, each warp a
+contiguous piece of it, PACK_STEP symbols a step: the bit offsets are a
+prefix sum across the block; a prep kernel before it zeroes the words and
+orders the segments longest first.
 
 `huf_pack` is the kernel wrapper; `huf_pack_plain` is the plain PyTorch
 version with the same signature and outputs. A CPU tensor goes to the
 plain version; a CUDA tensor launches the kernel or raises.
+`huf_pack_profile` launches the kernel's profiling instance.
 """
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +48,10 @@ MAXBITS = 11                   # HUF_TABLELOG_DEFAULT: codes are <= 11 bits
 SEGMENTS = 4                   # per stream, in order
 TABLE_ENTRIES = 256            # one code per byte value
 FIELDS = 4                     # segment row: src_off, len, table_row, out_word_off
+PACK_STEP = 512                # symbols a warp packs a step (csrc)
+PACK_WHOLE = 17861             # a segment up to this long: one round (csrc)
+PACK_ROUND = 6016              # the symbols of a round past it (csrc)
+PROF_FIELDS = 9                # huf_pack_profile's columns
 
 # per-segment status codes, shared with csrc/huf_encode.cu
 OK = 0
@@ -179,31 +189,72 @@ def huf_pack(data, segs, tables, n_words: int):
     _check(data, segs, tables, n_words)
     if data.device.type == "cpu":
         return huf_pack_plain(data, segs, tables, n_words)
-    dev = data.device
-    words = torch.zeros(n_words, dtype=torch.int32, device=dev)
-    bits = torch.empty(segs.shape[0], dtype=torch.int64, device=dev)
-    status = torch.empty(segs.shape[0], dtype=torch.int32, device=dev)
-    if segs.shape[0] == 0:
-        return words, bits, status
+    return _pack_launch(data, segs, tables, n_words, None)
+
+
+huf_pack.launches = 0          # calls that launched the pack kernel
+huf_pack.kernel_launches = 0   # kernels launched: 2 a call (prep, pack)
+
+
+def huf_pack_profile(data, segs, tables, n_words: int):
+    """huf_pack on CUDA tensors with a profile beside its outputs: (words,
+    bits, status, prof int64 (segments, PROF_FIELDS)), prof's columns per
+    segment (a thread block each) thread 0's clock cycles from the block's
+    start to its end, of which in setting up (the row, the table, the word
+    buffer zeroed), loading the symbols, looking up and counting their
+    bits (with the warp scans), the scan across the block (its barriers
+    included), scattering the codes into shared memory, and storing the
+    words; the rounds (1 for a segment of up to PACK_WHOLE symbols, else
+    one a PACK_ROUND); the block's ns on the card's global timer. A row out
+    of bounds has a row of zeros. It launches the pack kernel's profiling
+    instance (the plain call reads no clock). Counts as one huf_pack
+    call."""
+    _check(data, segs, tables, n_words)
+    if data.device.type != "cuda":
+        raise ValueError(f"huf_pack_profile runs on cuda, not {data.device}")
+    prof = torch.zeros((segs.shape[0], PROF_FIELDS), dtype=torch.int64,
+                       device=data.device)
+    return (*_pack_launch(data, segs, tables, n_words, prof), prof)
+
+
+@functools.cache
+def _launcher():
+    """csrc/huf_encode.cu's C entry, built and typed once."""
     fn = _build.load("huf_encode").huf_pack_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(data.data_ptr(), data.numel(), segs.data_ptr(),
-                 segs.shape[0], tables.data_ptr(), tables.shape[0],
-                 words.data_ptr(), n_words, bits.data_ptr(),
-                 status.data_ptr(), stream)
+                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _pack_launch(data, segs, tables, n_words: int, prof):
+    """One call of csrc/huf_encode.cu on CUDA tensors: its prep kernel
+    (the words zeroed: a word that no row in bounds covers stays 0, as in
+    the plain version; the rows ordered longest first, into scratch words
+    past n_words) and its pack kernel; `prof` (int64 (segments,
+    PROF_FIELDS), or None) receives the profile."""
+    dev = data.device
+    S = segs.shape[0]
+    scratch = torch.empty(n_words + S, dtype=torch.int32, device=dev)
+    bits = torch.empty(S, dtype=torch.int64, device=dev)
+    status = torch.empty(S, dtype=torch.int32, device=dev)
+    err = _launcher()(
+        dev.index, data.data_ptr(), data.numel(), segs.data_ptr(), S,
+        tables.data_ptr(), tables.shape[0], scratch.data_ptr(), n_words,
+        bits.data_ptr(), status.data_ptr(),
+        None if prof is None else prof.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"huf_pack launch failed: cudaError {err}")
-    huf_pack.launches += 1
-    return words, bits, status
-
-
-huf_pack.launches = 0
+    if S:
+        huf_pack.launches += 1
+        huf_pack.kernel_launches += 2
+    elif n_words:
+        huf_pack.kernel_launches += 1
+    return scratch[:n_words], bits, status
 
 
 def _status(data, segs, tables, n_words):

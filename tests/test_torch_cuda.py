@@ -31,10 +31,11 @@ from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
 from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
-from tests.torch_cases import (chain_tail_maps, lane_split_against_plain,
-                               lane_split_cases, match_edge_blocks,
-                               parse_edge_blocks, segment_plan,
-                               tablelog12_blob)
+from tests.torch_cases import (HUF_PACK_CASES, chain_tail_maps,
+                               huf_pack_against_plain, huf_pack_cases,
+                               lane_split_against_plain, lane_split_cases,
+                               match_edge_blocks, parse_edge_blocks,
+                               segment_plan, tablelog12_blob)
 
 pytestmark = pytest.mark.cuda
 
@@ -579,6 +580,38 @@ def test_huf_pack_status_matches_plain(card):
     assert (k[2] == teh.OK).sum() >= 8
     with pytest.raises(RuntimeError, match="stream 0, segment 0: a symbol"):
         teh.raise_on_status(k[2], plan)
+
+
+def test_huf_pack_edge_cases(card):
+    """huf_pack against huf_pack_plain on the plans that bound its split
+    (tests/torch_cases.py::huf_pack_cases: segment lengths around the
+    steps, rounds and the word buffer, 1-, 8-, 11-, 16-, 20- and 32-bit
+    codes, overflow, a missing code in the last step, rows out of bounds):
+    words, bits and status exactly, one call (two kernels) a case. The
+    profiling instance gives the same outputs and a row per segment: one
+    round up to PACK_WHOLE symbols, else ceil(len / PACK_ROUND), where no
+    code is missing; zeros for a row out of bounds."""
+    before = teh.huf_pack.launches, teh.huf_pack.kernel_launches
+    r = huf_pack_against_plain(card)
+    assert r["cases"] == list(HUF_PACK_CASES) and r["max_abs_err"] == 0
+    assert teh.huf_pack.launches == before[0] + len(HUF_PACK_CASES)
+    assert teh.huf_pack.kernel_launches == before[1] + 2 * len(HUF_PACK_CASES)
+    for name, (data, segs, tables, n_words), expect in huf_pack_cases():
+        args = [t.to(card) for t in (data, segs, tables)] + [n_words]
+        k = teh.huf_pack(*args)
+        *p, prof = teh.huf_pack_profile(*args)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), name
+        prof = prof.cpu()
+        for s, n in enumerate(segs[:, 1].tolist()):
+            if expect[s] == teh.ERR_BOUNDS:
+                assert (prof[s] == 0).all(), name
+                continue
+            assert prof[s, 0] >= prof[s, 1:7].sum() > 0, name
+            rounds = (min(n, 1) if n <= teh.PACK_WHOLE
+                      else -(-n // teh.PACK_ROUND))
+            if expect[s] != teh.ERR_NO_CODE:
+                assert prof[s, 7] == rounds, name
 
 
 @pytest.mark.parametrize("level", [35, 49])

@@ -7,6 +7,7 @@ encoder's two entropy routes equal to each other and to the JAX pipeline.
 Tolerance 0 throughout."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ import lizard_tpu_torch.ops.enc_lanes as P
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.frame import compress_frame_lanes, decompress_frame_lanes
 from tests.test_torch_enc_maps import port_cfg
+from tests.torch_cases import HUF_PACK_CASES, huf_pack_cases
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -232,6 +234,49 @@ def test_pack_plain_status(fault, want):
     if fault in ("no_code", "overflow"):
         assert (w[rows[4][3]:] == 0).all()
     assert torch.equal(w[:rows[4][3]], good[0][:rows[4][3]])
+
+
+@functools.cache
+def _huf_pack_cases():
+    return {name: (plan, expect) for name, plan, expect in huf_pack_cases()}
+
+
+@pytest.mark.parametrize("name", HUF_PACK_CASES)
+def test_pack_cases_plain_equal_encode_1x(name):
+    """The plans that bound the kernel's split (tests/torch_cases.py::
+    huf_pack_cases): each coded segment's bitstream byte-equal to the
+    reference's _huf_encode_1x under its table row, the statuses those
+    the case expects, and every other word zero: past each bitstream in
+    its reservation, over an error segment's words, and outside every
+    reservation."""
+    (data, segs, tables, n_words), expect = _huf_pack_cases()[name]
+    words, bits, status = E.huf_pack_plain(data, segs, tables, n_words)
+    assert status.tolist() == expect
+    raw = bytearray(words.numpy().astype("<i4").tobytes())
+    src = data.numpy().tobytes()
+    for s, (off, n, row, w0) in enumerate(segs.tolist()):
+        if expect[s] == E.ERR_BOUNDS:
+            continue
+        end = 4 * (w0 + E.segment_words(n))
+        if expect[s] == E.OK:
+            entry = tables[row].numpy().astype(np.int64)
+            want = JR._huf_encode_1x(src[off:off + n],
+                                     (entry & 0xFFFF).tolist(),
+                                     (entry >> 16).tolist())
+            assert bytes(raw[4 * w0:4 * w0 + len(want)]) == want
+            assert len(want) == (int(bits[s]) + 8) // 8
+            raw[4 * w0:4 * w0 + len(want)] = bytes(len(want))
+        else:
+            assert int(bits[s]) == 0
+        assert not any(raw[4 * w0:end])
+    assert not any(raw)
+
+
+def test_pack_profile_runs_on_the_card_only():
+    """The profiling instance has no plain version: CPU tensors raise."""
+    (data, segs, tables, n_words), _ = _huf_pack_cases()["every_shift"]
+    with pytest.raises(ValueError, match="cuda"):
+        E.huf_pack_profile(data, segs, tables, n_words)
 
 
 # ------------------------------------------------------------------ blobs

@@ -1,12 +1,13 @@
 """Inputs that bound the port's redesigned kernels, and the check of
-huf_decode against its plain version on them: Huff0 blobs that test the
-lane split of csrc/huf_decode.cu, blocks that bound the parse of
-csrc/enc_parse.cu, and blocks (and tail maps) that bound the match finder
-of csrc/enc_match.cu and the chain walk of csrc/enc_chain.cu. The card
-tests (tests/test_torch_cuda.py), the CPU tests that prove the inputs valid
+huf_decode and huf_pack against their plain versions on them: Huff0 blobs
+that test the lane split of csrc/huf_decode.cu, blocks that bound the parse
+of csrc/enc_parse.cu, blocks (and tail maps) that bound the match finder of
+csrc/enc_match.cu and the chain walk of csrc/enc_chain.cu, and packing
+plans that bound the split of csrc/huf_encode.cu. The card tests
+(tests/test_torch_cuda.py), the CPU tests that prove the inputs valid
 (tests/test_torch_huf.py, tests/test_torch_enc_parse.py,
-tests/test_torch_enc_maps.py) and chip_smoke.py share them. Imports neither
-JAX nor pytest.
+tests/test_torch_enc_maps.py, tests/test_torch_enc_huf.py) and
+chip_smoke.py share them. Imports neither JAX nor pytest.
 """
 
 import time
@@ -14,6 +15,7 @@ import time
 import numpy as np
 import torch
 
+from lizard_tpu_torch.ops import enc_huf as teh
 from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ref import huf_encode as hr
 from lizard_tpu_torch.ref.huf import huf_read_stats
@@ -307,3 +309,192 @@ def chain_tail_maps(maps: torch.Tensor) -> torch.Tensor:
     m[:, 0, n - 24:] = tail.to(torch.uint16)
     m[:, -1, n - 24:] = 8
     return m
+
+
+# ------------------------------------------ huf_pack: plans of its split
+
+
+def code_row(nb, val) -> np.ndarray:
+    """A huf_pack table row, int32 (256,): nbits << 16 | code for symbols
+    0 .. len(nb) - 1, 0 (no code) for the rest."""
+    row = np.zeros(teh.TABLE_ENTRIES, np.int64)
+    row[:len(nb)] = (np.asarray(nb, np.int64) << 16) | np.asarray(val,
+                                                                  np.int64)
+    return row.astype(np.int32)
+
+
+def skewed_bytes(n: int, seed: int) -> bytes:
+    """n bytes of 40 symbols, symbol 0 half of them, the others with
+    probabilities falling by 0.75 a symbol: their Huffman codes are 1 bit
+    and 3 to 11 bits long."""
+    p = 0.75 ** np.arange(39)
+    p = np.concatenate([[1.0], p / p.sum()]) / 2
+    return np.random.default_rng(seed).choice(
+        40, n, p=p).astype(np.uint8).tobytes()
+
+
+def huffman_row(data: bytes) -> np.ndarray:
+    """The reference encoder's code table of data (codes of at most 11
+    bits; symbols that do not occur have no code)."""
+    count, max_sym, _ = hr.fse_count(data, 255)
+    nb, val, _ = hr.huf_build_ctable(count, max_sym, hr.HUF_TABLELOG_DEFAULT)
+    return code_row(nb, val)
+
+
+def pack_plan(streams):
+    """(data, segs, tables, n_words) of streams [(four segments, table
+    row)]: the segments' bytes one after another, four rows a stream naming
+    its table, the words reserved one after another, as
+    enc_huf.plan_huf_streams lays out a batch."""
+    parts, rows, tables, cursor, words = [], [], [], 0, 0
+    for segments, row in streams:
+        assert len(segments) == teh.SEGMENTS
+        for seg in segments:
+            rows.append([cursor, len(seg), len(tables), words])
+            cursor += len(seg)
+            words += teh.segment_words(len(seg))
+            parts.append(seg)
+        tables.append(row)
+    data = np.frombuffer(b"".join(parts), np.uint8).copy()
+    return (torch.from_numpy(data), torch.tensor(rows, dtype=torch.int64),
+            torch.from_numpy(np.stack(tables)), words)
+
+
+def _fits(nbits: int, n: int) -> int:
+    """OK if n codes of nbits and the end mark fit the reserved words."""
+    return (teh.OK if nbits * n + 1 <= 32 * teh.segment_words(n)
+            else teh.ERR_OVERFLOW)
+
+
+HUF_PACK_CASES = ("lengths", "one_bit", "eleven_bit_32k", "every_shift",
+                  "end_on_word", "lengths_differ_by_3", "overflow_16_20",
+                  "no_code_last_step", "bounds", "beyond_buffer")
+
+
+def huf_pack_cases():
+    """(name, (data, segs, tables, n_words), expected status per segment):
+    plans that bound huf_pack's split of a segment into warps' pieces,
+    steps of PACK_STEP symbols, runs of 16 a lane and rounds:
+
+    - segments of 0, 1, 31, 32, 33, a warp's step and one symbol either
+      side, 4095-4097 (a step a warp), a round and one either side, three
+      rounds and 5, and the longest segment of one round (codes of 1 and
+      3-11 bits);
+    - all 1-bit codes;
+    - all 11-bit codes at 32 KB a segment: the reservation's last word
+      holds the end mark;
+    - a 32-bit code starting at every shift 0-31 (crossing a word at
+      every shift but 0), then 11-bit codes, which start at every shift;
+    - 8-bit codes whose bits end on a word boundary (also at a step's
+      end), so the end mark opens a new word;
+    - a stream of 20,001 bytes cut as the plan cuts it: segments of 5001,
+      5001, 5001 and 4998;
+    - 16-bit and 20-bit codes, which overflow but for short segments;
+    - a symbol without a code in the last step only, also in a segment
+      whose bits overflow;
+    - rows out of bounds (source past the data, words past n_words) next
+      to good rows;
+    - segments longer than the kernel's word buffer (32,769-40,000
+      symbols of 11-bit codes), packed in rounds that flush words."""
+    T, R = teh.PACK_STEP, teh.PACK_ROUND
+    OK = teh.OK
+    rng = np.random.default_rng(13)
+    skew = skewed_bytes(260_000, 14)
+    srow = huffman_row(skew)
+    assert set((srow >> 16).tolist()) == {0, 1} | set(range(3, 12))
+
+    def cut(lengths, at=0):
+        out = []
+        for n in lengths:
+            out.append(skew[at:at + n])
+            at += n
+        return out
+
+    def rand(n, top=256):
+        return rng.integers(0, top, n, np.uint8).tobytes()
+
+    cases = []
+    lengths = [0, 1, 31, 32, 33, T - 1, T, T + 1, 4095, 4096, 4097,
+               R - 1, R, R + 1, 3 * R + 5, teh.PACK_WHOLE]
+    segs = cut(lengths)
+    cases.append(("lengths", pack_plan(
+        [(segs[k:k + 4], srow) for k in range(0, 16, 4)]), [OK] * 16))
+    one = code_row([1, 1], [0, 1])
+    cases.append(("one_bit", pack_plan(
+        [([rand(n, 2) for n in (T + 5, 32768, 100, 3)], one)]), [OK] * 4))
+    r11 = code_row([11] * 256, rng.integers(0, 2048, 256))
+    cases.append(("eleven_bit_32k", pack_plan(
+        [([rand(32768) for _ in range(4)], r11)]), [OK] * 4))
+    shift = code_row([32, 1, 11], [0xBEEF, 1, 0x5A5])
+    emitted = [[0, 1] * 32 + [2] * 64 + [1] * (64 + k) for k in range(4)]
+    cases.append(("every_shift", pack_plan(
+        [([bytes(e[::-1]) for e in emitted], shift)]), [OK] * 4))
+    r8 = code_row([8] * 256, np.arange(256))
+    cases.append(("end_on_word", pack_plan(
+        [([rand(n) for n in (4, 4096, T, 3 * 4096)], r8)]), [OK] * 4))
+    n = 4 * 5000 + 1
+    seg = (n + 3) // 4
+    cases.append(("lengths_differ_by_3", pack_plan(
+        [(cut([seg, seg, seg, n - 3 * seg], 100_000), srow)]), [OK] * 4))
+    lens = (1000, T + 3, 5, 20_000)
+    over = []
+    for nb in (16, 20):
+        row = code_row([nb] * 256, rng.integers(0, 1 << 16, 256))
+        over.append(([rand(k) for k in lens], row))
+    cases.append(("overflow_16_20", pack_plan(over),
+                  [_fits(nb, k) for nb in (16, 20) for k in lens]))
+    absent = int(np.flatnonzero(srow == 0)[0])
+    late = bytearray(skew[150_000:150_000 + 2 * T + 500])
+    late[3] = absent                    # emission index len - 4: last step
+    row16 = code_row([16] * 255, rng.integers(0, 1 << 16, 255))
+    late16 = bytearray(rand(3 * T, 255))
+    late16[0] = 255                     # the last symbol; bits overflow
+    cases.append(("no_code_last_step", pack_plan(
+        [([bytes(late)] + cut([3000, 3001, 3002], 170_000), srow),
+         ([rand(5, 255), bytes(late16), rand(3, 255), b""], row16)]),
+        [teh.ERR_NO_CODE, OK, OK, OK, OK, teh.ERR_NO_CODE, OK, OK]))
+    data, segs, tables, n_words = pack_plan(
+        [(cut([2000, 2001, 1999, 7], 200_000 + 9000 * k), srow)
+         for k in range(3)])
+    segs[5, 0] = data.numel()           # its bytes past the data
+    segs[11, 3] = n_words - 1           # its words past n_words
+    expect = [OK] * 12
+    expect[5] = expect[11] = teh.ERR_BOUNDS
+    cases.append(("bounds", (data, segs, tables, n_words), expect))
+    cases.append(("beyond_buffer", pack_plan(
+        [([rand(n) for n in (40_000, 36_000, 32_769, 5)], r11)]), [OK] * 4))
+    assert tuple(c[0] for c in cases) == HUF_PACK_CASES
+    return cases
+
+
+def huf_pack_against_plain(device) -> dict:
+    """huf_pack against huf_pack_plain, both on `device`, on every case of
+    huf_pack_cases: words, bits and status exactly, and the statuses those
+    the case expects. Raises AssertionError on a difference; returns the
+    case names, segments, statuses, the largest difference (0), the plain
+    version's host-clock ms summed over the cases and the kernel calls
+    made."""
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else lambda: None)
+    names, statuses, plain_ms, segments, calls = [], [], 0.0, 0, 0
+    for name, (data, segs, tables, n_words), expect in huf_pack_cases():
+        args = (data.to(device), segs.to(device), tables.to(device), n_words)
+        k = [t.cpu() for t in teh.huf_pack(*args)]
+        calls += 1
+        sync()
+        t = time.perf_counter()
+        p = teh.huf_pack_plain(*args)
+        sync()
+        plain_ms += (time.perf_counter() - t) * 1e3
+        for what, a, b in zip(("words", "bits", "status"), k, p):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"huf_pack case {name}: {what} differ "
+                                     "from the plain version")
+        if k[2].tolist() != expect:
+            raise AssertionError(f"huf_pack case {name}: statuses "
+                                 f"{k[2].tolist()}, expected {expect}")
+        names.append(name)
+        statuses.append(k[2].tolist())
+        segments += segs.shape[0]
+    return {"cases": names, "segments": segments, "statuses": statuses,
+            "max_abs_err": 0, "plain_ms": plain_ms, "calls": calls}
