@@ -24,9 +24,9 @@ on the card, and checks every result against the input bytes:
    huf_decode's synchronisation rounds per segment (the share that needed
    the serial fallback);
 5. kernel against plain: lz_decode against lz_decode_plain on the card, on
-   the first 64 streams of the batch of levels 10 and 21, and at 35 and 41
+   the first 32 streams of the batch of levels 10 and 21, and at 35 and 41
    huf_decode against huf_decode_plain and lz_decode against
-   lz_decode_plain on the filled inputs of the first 64 streams (the plain
+   lz_decode_plain on the filled inputs of the first 32 streams (the plain
    versions are Python loops over tokens and symbols: the whole batch
    took ~150 s);
 6. level sweep: ~1 MB at levels 12, 19, 29, 31, 35, 41, 45, 49;
@@ -99,8 +99,34 @@ on the card, and checks every result against the input bytes:
    blocks of a linked frame (frame.linked_frame), decoded by
    decompress_frame on the card (one chain of 256 inner blocks, one
    lz_decode call), equal to the input and to the native stream decode;
-18. the kernels line (one JSON object per kernel);
-19. the last line: {"ok": true, "device": {...}}.
+18. sharded lane decode: the corpus's streams at levels 10, 21 and 41
+   through parallel/pipeline.py::decode_streams_sharded_lanes with
+   devices=None (one shard, the card) and over ["cuda:0"] * 4, equal to the
+   input, one lz_decode (and at 41 one huf_decode) call a shard, each timed
+   end to end in turns with decompress_lanes on the same streams (what
+   sharding costs on one card);
+19. all-XLA decode: the same streams at 10 and 21 through
+   decode_streams_sharded (ops/decode.py, plain PyTorch operations: no
+   kernel of ours), equal to the input; end-to-end time, the token parse's
+   loop steps and ms a step, the other steps, and the first 64 parse steps
+   under torch.profiler (kernels launched, the device's busy share);
+20. all-XLA encode at 10: frame.compress_frame_tpu(engine="xla") of the
+   corpus and encode_streams_tpu of its 128 KB chunks, decoded on the card
+   and natively, the card's bytes equal to the CPU run on 8 blocks, timed
+   and sized beside encode_streams_lanes;
+21. sharded encode at 11 and 49 over ["cuda:0"] * 4 (encode_blocks_sharded):
+   byte-equal to encode_blocks_lanes, one call of each kernel a shard,
+   both timed in turns;
+22. parallel/multihost.py::decode_streams_global over a torch.distributed
+   group of one rank on NCCL: results equal the input, the offsets
+   (all-gathered by NCCL) the host's cumsum of the block lengths;
+23. entry.entry()'s decode step and entry.dryrun_multichip(4,
+   ["cuda:0"] * 4), each sharded path once on tiny shapes;
+   phases 18-23 time their host steps with utils/profiling.py's stage
+   timers, and their kernels' launches join the kernels line's
+   launches_by_path;
+24. the kernels line (one JSON object per kernel);
+25. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -121,7 +147,7 @@ HUF_LEVELS = (35, 41)
 SWEEP_LEVELS = (12, 19, 29, 31, 35, 41, 45, 49)
 KERNEL_REPS = 10
 PLAIN_TOLERANCE = 0            # decoded bytes, lengths, status: exact
-PLAIN_STREAMS = 64             # streams of a full batch held against plain
+PLAIN_STREAMS = 32             # streams of a full batch held against plain
 ENC_LEVELS = (11, 21, 35, 49)
 ENC_REPS = 3
 # one level per distinct encoder tier (EncCfg): both codeword families,
@@ -153,6 +179,13 @@ REALFILE_BYTES = 16 << 20
 REALFILE_LEVEL = 49
 REALFILE_PART = (112, 128)     # streams of the batch decoded alone
 REALFILE_BLOCK = 120           # the block the TPU lane decoder corrupted
+SHARDS = 4                     # shards of the sharded phases on one card
+SHARDED_LEVELS = (10, 21, 41)  # sharded lane decode
+XLA_LEVELS = (10, 21)          # all-XLA decode
+XLA_ENC_LEVEL = 10             # all-XLA encode (fastLZ4 only)
+SHARDED_ENC_LEVELS = (11, 49)  # sharded encode
+SHARDED_REPS = 3
+XLA_TRACE_STEPS = 64           # parse steps under torch.profiler
 
 
 def emit(phase: str, **kv) -> None:
@@ -711,11 +744,15 @@ def huf_profile(teh, hargs, kernel_ms: float) -> dict:
 
 
 def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
-                  enc_plain_ms, n_blocks) -> dict:
+                  enc_plain_ms, n_blocks, other_paths: dict) -> dict:
     """The kernels-line entry of one encoder kernel from the full-size
-    encode records `enc` (launches summed over their main-path runs)."""
+    encode records `enc` (launches summed over their main-path runs and the
+    runs of `other_paths`, {path: launches})."""
     levels = [lv for lv in ENC_LEVELS if wrapper in enc[lv]["kernel_ms"]]
-    launches = sum(enc[lv]["launches"][wrapper] for lv in ENC_LEVELS)
+    paths = {"encode_blocks_lanes": sum(enc[lv]["launches"][wrapper]
+                                        for lv in ENC_LEVELS),
+             **other_paths}
+    launches = sum(paths.values())
     kernels = sum(enc[lv]["huf_pack_kernel_launches"] for lv in ENC_LEVELS)
     shape = f"level {main_level}, {n_blocks} blocks x 128 KB"
     if wrapper == "huf_pack":
@@ -728,6 +765,7 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
         "source": f"lizard_tpu_torch/csrc/{src}.cu",
         "replaces": replaces,
         "launches": launches,
+        "launches_by_path": paths,
         "max_abs_err": enc_err[wrapper],
         "tolerance": ENC_TOLERANCE,
         "matches_plain": enc_err[wrapper] <= ENC_TOLERANCE,
@@ -738,7 +776,8 @@ def encoder_entry(name, wrapper, src, replaces, main_level, enc, enc_err,
         "library_ms": None,
         "shape": shape,
         **({"kernel_launches": kernels,
-            "kernel_launches_per_call": kernels / max(launches, 1)}
+            "kernel_launches_per_call":
+                kernels / max(paths["encode_blocks_lanes"], 1)}
            if wrapper == "huf_pack" else {}),
         "ms_by_level": {str(lv): enc[lv]["kernel_ms"][wrapper]
                         for lv in levels},
@@ -1084,6 +1123,274 @@ def linked(tld, runtime, corpus: bytes, smi: str) -> dict:
            **lz_profile(tld, args, len(corpus), STREAM_REPS),
            "hbm_floor_ms": lz_floor_ms(args, len(corpus)), "card": smi}
     emit("linked_frame", **rec)
+    return rec
+
+
+def sharded_lanes(pp, tld, th, profiling, level: int, streams,
+                  corpus: bytes, smi: str) -> dict:
+    """Phase 18 at one level: decode_streams_sharded_lanes on the card with
+    devices=None (one shard: the card) and over ["cuda:0"] * SHARDS, each
+    equal to the input, the kernels' calls counted from 0 just before each
+    run (one lz_decode call a shard, one huf_decode call a shard at 30-49);
+    then each, and decompress_lanes on the same streams, timed whole on the
+    host clock in turns (stage timers), SHARDED_REPS times. Emits and
+    returns the record."""
+    import torch
+    runs = {"one_card": None, "sharded": ["cuda:0"] * SHARDS}
+    launches = {}
+    for name, devices in runs.items():
+        tld.lz_decode.launches = th.huf_decode.launches = 0
+        outs = pp.decode_streams_sharded_lanes(streams, devices)
+        torch.cuda.synchronize()
+        launches[name] = {"lz_decode": tld.lz_decode.launches,
+                          "huf_decode": th.huf_decode.launches}
+        shards = 1 if devices is None else SHARDS
+        if b"".join(outs) != corpus:
+            raise AssertionError(f"sharded lanes {name} level {level}: "
+                                 "decode != input")
+        if (launches[name]["lz_decode"] != shards
+                or launches[name]["huf_decode"]
+                != (shards if level >= 30 else 0)):
+            raise AssertionError(f"sharded lanes {name} level {level}: "
+                                 f"launches {launches[name]}")
+    profiling.reset()
+    for _ in range(SHARDED_REPS):
+        with profiling.stage("decompress_lanes"):
+            tld.decompress_lanes(streams)
+        for name, devices in runs.items():
+            with profiling.stage(name):
+                pp.decode_streams_sharded_lanes(streams, devices)
+    ms = {k: [t * 1e3 for t in v] for k, v in profiling.stages().items()}
+    rec = {"level": level, "streams": len(streams), "shards": SHARDS,
+           "launches": launches,
+           **{f"{k}_e2e_ms": statistics.median(v) for k, v in ms.items()},
+           "e2e_runs_ms": ms, "card": smi}
+    emit("sharded_lanes_decode", **rec)
+    return rec
+
+
+def xla_decode(pp, xd, profiling, level: int, streams, corpus: bytes,
+               smi: str) -> dict:
+    """Phase 19 at one level: the all-XLA decoder (ops/decode.py, plain
+    PyTorch operations, no kernel of ours) through decode_streams_sharded
+    on the card (devices=None: one shard), equal to the input, timed whole;
+    then its steps on the same batch, each synchronised (stage timers):
+    split, H2D, the token parse (max_steps + 1 loop steps), resolve, D2H;
+    and the first XLA_TRACE_STEPS parse steps timed alone and traced by
+    torch.profiler: the CUDA kernels they launch and their summed time
+    beside the wall time (the device's busy share). Emits and returns the
+    record."""
+    import tempfile
+    import torch
+    from lizard_tpu_torch.format.levels import Codewords
+    profiling.reset()
+    with profiling.stage("e2e"):
+        outs = pp.decode_streams_sharded(streams, BLOCK)
+    if b"".join(outs) != corpus:
+        raise AssertionError(f"all-XLA decode level {level}: decode != input")
+    with profiling.stage("split"):
+        batch = pp.split_shard(streams, list(range(len(streams))))
+    liz = batch.codewords == Codewords.LIZv1
+    with profiling.stage("h2d"):
+        args = xd.stage_batch(batch, "cuda")
+        torch.cuda.synchronize()
+    with profiling.stage("parse"):
+        parsed = xd.token_parse(args, liz, batch.max_tokens)
+        torch.cuda.synchronize()
+    with profiling.stage("resolve"):
+        out, blk_len = xd.resolve_output(
+            *parsed, args["flags_len"], args["literals"],
+            len(streams) * BLOCK, int((batch.flags_len + 1).sum()))
+        torch.cuda.synchronize()
+    with profiling.stage("d2h"):
+        data, lens = out.cpu(), blk_len.cpu()
+    if bytes(data[:int(lens.sum())].numpy()) != corpus:
+        raise AssertionError(f"all-XLA decode level {level}: steps != input")
+    steps = batch.max_tokens + 1
+    ms = {k: v[0] * 1e3 for k, v in profiling.stages().items()}
+    # the first XLA_TRACE_STEPS steps alone, then under torch.profiler (a
+    # one-step trace first, which pays the tracer's start-up): the CUDA
+    # kernels' count and summed time beside the untraced wall time
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    xd.token_parse(args, liz, XLA_TRACE_STEPS - 1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            xd.token_parse(args, liz, 0)
+            torch.cuda.synchronize()
+        with profiling.trace(tmp) as prof:
+            xd.token_parse(args, liz, XLA_TRACE_STEPS - 1)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    rec = {"level": level, "streams": len(streams), "blocks": batch.n_blocks,
+           "parse_steps": steps, "e2e_ms": ms["e2e"],
+           "steps_ms": {k: ms[k] for k in ("split", "h2d", "parse",
+                                           "resolve", "d2h")},
+           "parse_ms_per_step": ms["parse"] / steps,
+           "first_steps": XLA_TRACE_STEPS, "first_steps_wall_ms": wall_ms,
+           "first_steps_kernel_ms": busy_ms,
+           "first_steps_device_busy_share": busy_ms / wall_ms,
+           "first_steps_kernels": sum(e.count for e in kernels),
+           "gbps": len(corpus) / ms["e2e"] / 1e6, "card": smi}
+    emit("xla_decode", **rec)
+    return rec
+
+
+def xla_encode(xe, te, tld, runtime, frame, ltt, profiling, chunks,
+               corpus: bytes, smi: str) -> dict:
+    """Phase 20: the all-XLA encoder (ops/encode_tpu.py, plain PyTorch
+    operations) at XLA_ENC_LEVEL: compress_frame_tpu(engine="xla") of the
+    corpus in 4 MB frame blocks, decoded on the card; encode_streams_tpu of
+    the 128 KB chunks, every stream decoded on the card and natively, timed
+    whole in turns with encode_streams_lanes (the device encoder) on the
+    same chunks, and both ratios; on the first 8 blocks the card's bytes
+    equal the CPU run of the same function; one batch of _encode_batch
+    timed by CUDA events. Emits and returns the record."""
+    import torch
+    level = XLA_ENC_LEVEL
+    profiling.reset()
+    with profiling.stage("frame"):
+        fr = frame.compress_frame_tpu(corpus, level, block_size_id=4,
+                                      engine="xla")
+    if ltt.decompress_frame(fr) != corpus:
+        raise AssertionError("all-XLA encode: the frame did not decode")
+    for _ in range(SHARDED_REPS):
+        with profiling.stage("encode_streams_tpu"):
+            xs = xe.encode_streams_tpu(chunks, level)
+        with profiling.stage("encode_streams_lanes"):
+            ls = te.encode_streams_lanes(chunks, level)
+    if (tld.decompress_lanes(xs) != chunks
+            or [runtime.decompress(s, BLOCK) for s in xs] != chunks):
+        raise AssertionError("all-XLA encode: a stream did not decode")
+    cpu = xe.encode_blocks_tpu(chunks[:8], level, device="cpu")
+    if cpu != xe.encode_blocks_tpu(chunks[:8], level) or cpu != xs[:8]:
+        raise AssertionError("all-XLA encode: card bytes != CPU bytes")
+    u8 = torch.zeros((xe.BATCH, xe.N), dtype=torch.uint8)
+    for k, c in enumerate(chunks[:xe.BATCH]):
+        u8[k] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
+    u8 = u8.cuda()
+    n = torch.full((xe.BATCH,), xe.N, dtype=torch.int64, device="cuda")
+    batch_ms = cuda_ms(lambda: xe._encode_batch(u8, n), SHARDED_REPS)
+    ms = {k: [t * 1e3 for t in v] for k, v in profiling.stages().items()}
+    rec = {"level": level, "blocks": len(chunks), "bytes": len(corpus),
+           "frame_bytes": len(fr), "frame_ms": ms["frame"][0],
+           "xla_e2e_ms": statistics.median(ms["encode_streams_tpu"]),
+           "lanes_e2e_ms": statistics.median(ms["encode_streams_lanes"]),
+           "e2e_runs_ms": {k: ms[k] for k in ("encode_streams_tpu",
+                                              "encode_streams_lanes")},
+           "xla_ratio": sum(map(len, xs)) / len(corpus),
+           "lanes_ratio": sum(map(len, ls)) / len(corpus),
+           "encode_batch_ms": batch_ms, "encode_batch_blocks": xe.BATCH,
+           "cpu_equal_blocks": 8, "card": smi}
+    emit("xla_encode", **rec)
+    return rec
+
+
+def sharded_encode(pp, te, teh, tld, profiling, chunks, level: int,
+                   smi: str) -> dict:
+    """Phase 21 at one level: encode_blocks_sharded over ["cuda:0"] *
+    SHARDS, the encoder kernels' calls counted from 0 just before it (one
+    call a shard of each kernel the level runs), byte-equal to
+    encode_blocks_lanes on the card and decoded on the card; both timed
+    whole in turns, SHARDED_REPS times. Emits and returns the record."""
+    import torch
+    cfg = te.cfg_for_level(level)
+    devices = ["cuda:0"] * SHARDS
+    reset_enc_launches(te, teh)
+    got = pp.encode_blocks_sharded(chunks, level, devices=devices)
+    torch.cuda.synchronize()
+    launches = dict(zip(ENC_WRAPPERS, enc_launches(te, teh)))
+    want = {"match_find": SHARDS, "parse_tokens": SHARDS,
+            "chain_walk": SHARDS if cfg.chain else 0,
+            "huf_pack": SHARDS if te.huffman_level(level) else 0}
+    if launches != want:
+        raise AssertionError(f"sharded encode level {level}: launches "
+                             f"{launches}, expected {want}")
+    if got != te.encode_blocks_lanes(chunks, level):
+        raise AssertionError(f"sharded encode level {level}: bytes differ "
+                             "from encode_blocks_lanes")
+    if tld.decompress_lanes(got) != chunks:
+        raise AssertionError(f"sharded encode level {level}: decode != "
+                             "input")
+    profiling.reset()
+    for _ in range(SHARDED_REPS):
+        with profiling.stage("encode_blocks_lanes"):
+            te.encode_blocks_lanes(chunks, level)
+        with profiling.stage("encode_blocks_sharded"):
+            pp.encode_blocks_sharded(chunks, level, devices=devices)
+    ms = {k: [t * 1e3 for t in v] for k, v in profiling.stages().items()}
+    rec = {"level": level, "blocks": len(chunks), "shards": SHARDS,
+           "launches": launches,
+           **{f"{k}_e2e_ms": statistics.median(v) for k, v in ms.items()},
+           "e2e_runs_ms": ms,
+           "compressed_bytes": sum(map(len, got)), "card": smi}
+    emit("sharded_encode", **rec)
+    return rec
+
+
+def nccl_global(pm, streams, chunks, smi: str) -> dict:
+    """Phase 22: a torch.distributed group of one rank over NCCL (a file
+    store in a temporary directory), then decode_streams_global over it
+    (the all-XLA decoder; the lengths all-gathered by NCCL): results equal
+    the input, the offsets the host's exclusive cumsum of the block
+    lengths; the group destroyed afterwards. Emits and returns the
+    record."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            backend = dist.get_backend()
+            t = time.perf_counter()
+            results, offs = pm.decode_streams_global(streams, BLOCK)
+            torch.cuda.synchronize()
+            e2e_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            dist.destroy_process_group()
+    lens = torch.tensor([len(c) for c in chunks], dtype=torch.int64)
+    if results != chunks:
+        raise AssertionError("decode_streams_global: results != input")
+    if offs.device.type != "cuda" or not torch.equal(
+            offs.cpu().reshape(-1), torch.cumsum(lens, 0) - lens):
+        raise AssertionError("decode_streams_global: offsets != the host's "
+                             "cumsum")
+    rec = {"backend": backend, "world_size": 1, "streams": len(streams),
+           "offs_shape": list(offs.shape), "e2e_ms": e2e_ms, "card": smi}
+    emit("nccl_global", **rec)
+    return rec
+
+
+def entry_phase(entry, te, teh, tld, th) -> dict:
+    """Phase 23: entry.entry()'s all-XLA step on the card equal to its
+    batch's bytes; entry.dryrun_multichip(SHARDS, ["cuda:0"] * SHARDS),
+    every kernel's calls counted from 0 just before it. Emits and returns
+    the record."""
+    import torch
+    from lizard_tpu_torch.utils.datagen import gen
+    fn, args = entry.entry()
+    out, blk_len = fn(*args)
+    if bytes(out.cpu().numpy()) != gen(3000, seed=0) + gen(3000, seed=1):
+        raise AssertionError("entry(): the decode step != its batch")
+    reset_enc_launches(te, teh)
+    tld.lz_decode.launches = th.huf_decode.launches = 0
+    t = time.perf_counter()
+    entry.dryrun_multichip(SHARDS, ["cuda:0"] * SHARDS)
+    torch.cuda.synchronize()
+    rec = {"entry_blocks": int(blk_len.numel()),
+           "dryrun_s": time.perf_counter() - t,
+           "launches": {"lz_decode": tld.lz_decode.launches,
+                        "huf_decode": th.huf_decode.launches,
+                        **dict(zip(ENC_WRAPPERS, enc_launches(te, teh)))}}
+    if min(rec["launches"][k] for k in ("lz_decode", "match_find",
+                                        "chain_walk", "parse_tokens")) < 1:
+        raise AssertionError(f"dryrun_multichip: launches {rec['launches']}")
+    emit("entry", **rec)
     return rec
 
 
@@ -1546,7 +1853,39 @@ def main() -> int:
     # 17. a linked frame of the whole corpus: one chain of 256 inner blocks
     lf = linked(tld, runtime, corpus, smi)
 
-    # 18. kernels line: launches summed over every path's run, counted
+    # 18-23: the sharded paths over one card and the all-XLA paths
+    from lizard_tpu_torch import entry
+    from lizard_tpu_torch import frame as tframe
+    from lizard_tpu_torch.ops import decode as xd
+    from lizard_tpu_torch.ops import encode_tpu as xe
+    from lizard_tpu_torch.parallel import multihost as pm
+    from lizard_tpu_torch.parallel import pipeline as pp
+    from lizard_tpu_torch.utils import profiling
+    # 18. sharded lane decode, one card and SHARDS shards on it
+    sl = {level: sharded_lanes(pp, tld, th, profiling, level,
+                               staged[level][0], corpus, smi)
+          for level in SHARDED_LEVELS}
+    # 19. the all-XLA decoder through decode_streams_sharded
+    xdec = {level: xla_decode(pp, xd, profiling, level, staged[level][0],
+                              corpus, smi)
+            for level in XLA_LEVELS}
+    # 20. the all-XLA encoder beside the device encoder
+    xenc = xla_encode(xe, te, tld, runtime, tframe, ltt, profiling, chunks,
+                      corpus, smi)
+    # 21. sharded encode over SHARDS shards on the card
+    se = {level: sharded_encode(pp, te, teh, tld, profiling, chunks, level,
+                                smi)
+          for level in SHARDED_ENC_LEVELS}
+    # 22. decode_streams_global over a one-rank NCCL group
+    ng = nccl_global(pm, staged[XLA_LEVELS[-1]][0], chunks, smi)
+    # 23. entry() and dryrun_multichip over SHARDS shards on the card
+    ep = entry_phase(entry, te, teh, tld, th)
+    enc_paths = {w: {"encode_blocks_sharded": sum(r["launches"][w]
+                                                  for r in se.values()),
+                     "dryrun_multichip": ep["launches"][w]}
+                 for w in ENC_WRAPPERS}
+
+    # 24. kernels line: launches summed over every path's run, counted
     # from 0 just before it and read just after
     lz_paths = {"decompress_lanes": main_launches,
                 "sweep": sweep_launches[1],
@@ -1555,7 +1894,11 @@ def main() -> int:
                                            for r in pb.values()),
                 "decompress_pallas": sum(r["launches"] for r in ps.values()),
                 "realfiles": rf["launches"]["lz_decode"] if rf else 0,
-                "linked_frame": lf["launches"]}
+                "linked_frame": lf["launches"],
+                "decode_streams_sharded_lanes": sum(
+                    n["lz_decode"] for r in sl.values()
+                    for n in r["launches"].values()),
+                "dryrun_multichip": ep["launches"]["lz_decode"]}
     lz_kernel_paths = {
         "decompress_lanes": main_kernel_launches,
         "decode_batch_pallas": sum(r["kernel_launches"] for r in pb.values()),
@@ -1566,7 +1909,11 @@ def main() -> int:
                  "sweep": sweep_launches[0],
                  "decompress_frame": frame_launches[0],
                  "huf_decompress_lanes": lh["launches"],
-                 "realfiles": rf["launches"]["huf_decode"] if rf else 0}
+                 "realfiles": rf["launches"]["huf_decode"] if rf else 0,
+                 "decode_streams_sharded_lanes": sum(
+                     n["huf_decode"] for r in sl.values()
+                     for n in r["launches"].values()),
+                 "dryrun_multichip": ep["launches"]["huf_decode"]}
     t10 = timing[MAIN_LEVELS[0]]
     h41 = huf_timing[HUF_LEVELS[-1]]
     print(json.dumps({"kernels": [{
@@ -1652,10 +1999,11 @@ def main() -> int:
         "lane_split_max_rounds": ls["max_rounds_by_case"],
         "plain_ms_by_path": {"huf_decompress_lanes": lh["plain_ms"]},
         "bound_ms_by_path": {"huf_decompress_lanes": lh["hbm_floor_ms"]},
-    }] + [encoder_entry(*k, enc, enc_err, enc_plain_ms, len(chunks))
+    }] + [encoder_entry(*k, enc, enc_err, enc_plain_ms, len(chunks),
+                        enc_paths[k[1]])
           for k in ENC_KERNELS]}), flush=True)
 
-    # 19. last line
+    # 25. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

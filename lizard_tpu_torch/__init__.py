@@ -28,10 +28,25 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
                             PyTorch versions, native emission, containers
 - ``ops.enc_huf``        -- Huff0 encode: the CUDA kernel csrc/huf_encode.cu,
                             its host plan, wrapper and plain PyTorch version
+- ``ops.decode``         -- the all-XLA batched decoder in plain PyTorch
+                            operations (decode_batch, decompress_xla)
+- ``ops.encode_tpu``     -- the all-XLA fastLZ4 encoder in plain PyTorch
+                            operations (encode_blocks_tpu,
+                            encode_streams_tpu)
+- ``parallel.pipeline``  -- decode and encode over a list of devices, one
+                            shard each (decode_streams_sharded(_lanes),
+                            decode_frame_sharded, encode_blocks_sharded)
+- ``parallel.multihost`` -- the torch.distributed group and
+                            decode_streams_global (per-block lengths
+                            all-gathered on the device)
+- ``utils.profiling``    -- torch.profiler traces and host stage timers
+- ``entry``              -- the all-XLA decode step and a dry run of every
+                            sharded path
 - ``frame`` / ``api``    -- frame container and one-shot entry points
                             (compress(backend="gpu"), compress_frame_lanes,
-                            decompress_frame and decompress_frames: linked,
-                            independent and skippable frames)
+                            compress_frame_tpu, decompress(backend="gpu" or
+                            "xla"), decompress_frame and decompress_frames:
+                            linked, independent and skippable frames)
 
 Every entry point runs on the card unless the caller passes device="cpu".
 Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
@@ -52,6 +67,7 @@ from lizard_tpu_torch.api import (  # noqa: F401
 )
 from lizard_tpu_torch.frame import (  # noqa: F401
     compress_frame_lanes,
+    compress_frame_tpu,
     decompress_frame_lanes,
     decompress_frames,
 )
@@ -59,4 +75,13 @@ from lizard_tpu_torch.ops.enc_huf import huf_compress_batch  # noqa: F401
 from lizard_tpu_torch.ops.enc_lanes import (  # noqa: F401
     encode_blocks_lanes,
     encode_streams_lanes,
+)
+from lizard_tpu_torch.parallel.multihost import (  # noqa: F401
+    decode_streams_global,
+)
+from lizard_tpu_torch.parallel.pipeline import (  # noqa: F401
+    decode_frame_sharded,
+    decode_streams_sharded,
+    decode_streams_sharded_lanes,
+    encode_blocks_sharded,
 )

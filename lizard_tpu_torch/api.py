@@ -1,12 +1,14 @@
 """Top-level one-shot API of the port (the counterpart of lizard_tpu/api.py):
 block-stream compression through the device encoder (the default) or the
-native encoder, and block-stream and frame decompression on the card
-(device=None means "cuda"; pass device="cpu" for the plain PyTorch route)."""
+native encoder, and block-stream and frame decompression on the card (the
+CUDA kernels, or backend="xla": the all-XLA decoder in plain PyTorch
+operations); device=None means "cuda", device="cpu" the plain route."""
 
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import LIZARD_DEFAULT_CLEVEL
 from lizard_tpu_torch import frame
+from lizard_tpu_torch.ops.decode import decompress_xla
 from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 
@@ -38,9 +40,19 @@ def compress(data: bytes, level: int = LIZARD_DEFAULT_CLEVEL,
     return out
 
 
-def decompress(data: bytes, max_out: int | None = None, device=None) -> bytes:
+def decompress(data: bytes, max_out: int | None = None, device=None,
+               backend: str = "gpu") -> bytes:
     """One-shot block-stream decompression (Lizard_decompress_safe) on
-    `device`: a one-stream decompress_lanes."""
+    `device`. backend="gpu" (the default): a one-stream decompress_lanes,
+    the CUDA kernels; raises CorruptError when the output exceeds max_out.
+    backend="xla": ops/decode.py::decompress_xla, the plain-PyTorch port of
+    the JAX package's all-XLA decoder (its backend="jax"); max_out must be
+    the decoded size there."""
+    if backend == "xla":
+        return decompress_xla(data, max_out, device)
+    if backend != "gpu":
+        raise NotImplementedError(
+            f"backend {backend!r}: only 'gpu' and 'xla' are ported")
     out = decompress_lanes([data], device=device)[0]
     if max_out is not None and len(out) > max_out:
         raise CorruptError("output exceeds max_out")

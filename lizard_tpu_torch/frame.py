@@ -16,7 +16,9 @@ reference's window_base=0), after the Huff0 kernel at levels 30-49
 `decompress_frame_lanes` is the JAX function of that name: blockIndependent
 frames of one family only. `compress_frame_lanes` compresses every frame
 block on the card with the device encoder (ops/enc_lanes.py), Huff0 stage
-included (ops/enc_huf.py).
+included (ops/enc_huf.py); `compress_frame_tpu` is the JAX function of that
+name, its engine="xla" the plain-PyTorch all-XLA encoder
+(ops/encode_tpu.py).
 """
 
 from lizard_tpu_torch import runtime
@@ -30,6 +32,7 @@ from lizard_tpu_torch.format.constants import (
 from lizard_tpu_torch.format.levels import LEVELS, Codewords, validate_level
 from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
+from lizard_tpu_torch.ops.encode_tpu import encode_streams_tpu
 from lizard_tpu_torch.ops.fuse import decode_fused, plan_split
 from lizard_tpu_torch.ops.lane_decode import (
     decode_batch_lanes, decompress_lanes)
@@ -205,6 +208,35 @@ def compress_frame_lanes(data: bytes, level: int = 11,
     comps = encode_streams_lanes(parts, level=level, device=device,
                                  entropy=entropy)
     return _frame(header, comps, parts, data, content_checksum)
+
+
+def compress_frame_tpu(data: bytes, level: int = 11,
+                       block_size_id: int = 0,
+                       content_checksum: bool = True,
+                       content_size: bool = False, engine: str | None = None,
+                       device=None) -> bytes:
+    """Frame compression on `device` (the card unless device="cpu"): a
+    blockIndependent frame whose blocks' 128 KB chunks are compressed in one
+    batch. The port of lizard_tpu/frame.py::compress_frame_tpu:
+    engine="lanes" (the default) is encode_streams_lanes, the device
+    encoder of ops/enc_lanes.py, levels 10-49 (compress_frame_lanes with
+    entropy="gpu"); engine="xla" is ops/encode_tpu.py::encode_streams_tpu,
+    the plain-PyTorch port of the JAX package's all-XLA pipeline, fastLZ4
+    levels 10-19 only. (The JAX default picks "xla" on its CPU backend for
+    levels below 20; the port's lanes engine runs on the CPU too, as its
+    plain versions, so its default is "lanes" everywhere.)"""
+    engine = engine or "lanes"
+    if engine not in ("lanes", "xla"):
+        raise ValueError(f"unknown engine {engine!r}")
+    level, block_size, header = _header(level, block_size_id, len(data),
+                                        content_checksum, content_size)
+    if engine == "xla" and level >= 20:
+        raise ValueError("engine='xla' supports levels 10-19 only")
+    parts = [data[pos:pos + block_size]
+             for pos in range(0, len(data), block_size)]
+    encode = encode_streams_lanes if engine == "lanes" else encode_streams_tpu
+    return _frame(header, encode(parts, level=level, device=device), parts,
+                  data, content_checksum)
 
 
 def linked_frame(stream: bytes, data: bytes, block_size_id: int = 4) -> bytes:

@@ -67,6 +67,12 @@ class BlockBatch:
     # mixes them; None: every block is `codewords`
     block_family: torch.Tensor | None = None
 
+    @property
+    def max_tokens(self) -> int:
+        """The most tokens (flags bytes) of any block: the trip count of
+        ops/decode.py's token parse."""
+        return int(self.flags_len.max()) if self.n_blocks else 0
+
     def family_arg(self, device):
         """lz_decode's `family`: one int for the batch, or the per-block
         tensor on `device` where the blocks mix families."""

@@ -1,8 +1,9 @@
 """The CUDA kernels (csrc/lz_decode.cu, csrc/huf_decode.cu and the device
 encoder's csrc/enc_match.cu, csrc/enc_chain.cu, csrc/enc_parse.cu,
 csrc/huf_encode.cu) against their plain PyTorch versions, on the card, on
-every path that launches them (ops/pallas_decode.py and ops/lane_huf.py
-included). Every test here needs an NVIDIA GPU and skips without one.
+every path that launches them (ops/pallas_decode.py, ops/lane_huf.py and
+the sharded paths of parallel/pipeline.py included); the all-XLA paths
+(ops/decode.py, ops/encode_tpu.py) on the card against their CPU runs. Every test here needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor lizard_tpu, so it also runs where JAX is
 not installed; tests/conftest.py imports JAX, so run it there with
@@ -25,7 +26,10 @@ from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops import lane_huf as tlh
 from lizard_tpu_torch.ops import pallas_decode as tpd
+from lizard_tpu_torch.ops import decode as xla_decode
+from lizard_tpu_torch.ops import encode_tpu as xla_encode
 from lizard_tpu_torch.ops import split as tsplit
+from lizard_tpu_torch.parallel import pipeline
 from lizard_tpu_torch.ops.fuse import build_fused_plan
 from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
@@ -630,4 +634,81 @@ def test_encode_entropy_routes_equal(level, card):
     assert any(s[1] & 3 == 3 for s in got if len(s) > 1)
     assert [runtime.decompress(s, max(len(d), 1))
             for s, d in zip(got, blocks)] == blocks
+    assert tld.decompress_lanes(got) == blocks
+
+
+# ---------------------------------------- sharded and all-XLA paths (A2-A3)
+
+
+@pytest.mark.parametrize("level", [12, 21, 41])
+def test_sharded_lanes_decode_on_card(level, card):
+    """decode_streams_sharded_lanes over ["cuda:0"] * 3 equal to one
+    decompress_lanes call and to the input: one lz_decode call a shard,
+    one huf_decode call a shard at 41 (every shard holds text)."""
+    datas = [text_like(131_072, level + i) if i % 2 == 0
+             else gen(131_072, level + i, proba=0.6) for i in range(7)]
+    streams = [runtime.compress(d, level) for d in datas]
+    before = tld.lz_decode.launches, th.huf_decode.launches
+    got = pipeline.decode_streams_sharded_lanes(streams, ["cuda:0"] * 3)
+    torch.cuda.synchronize()
+    assert tld.lz_decode.launches == before[0] + 3
+    assert th.huf_decode.launches == before[1] + (3 if level >= 30 else 0)
+    assert got == tld.decompress_lanes(streams) == datas
+
+
+@pytest.mark.parametrize("level", [10, 21])
+def test_xla_decode_batch_card_equals_cpu(level, card):
+    """ops/decode.py's decode_batch on the card equal to its CPU run (bytes
+    and lengths), and the sharded all-XLA decode on the card equal to the
+    input."""
+    datas = [gen(40_000 + 999 * i, seed=i, proba=0.6) for i in range(4)]
+    datas.append(gen(140_000, seed=9))
+    streams = [runtime.compress(d, level) for d in datas]
+    batch = split_streams(streams)
+    total = sum(map(len, datas))
+    out, lens = xla_decode.decode_batch(batch, total, device=card)
+    cpu_out, cpu_lens = xla_decode.decode_batch(batch, total, device="cpu")
+    assert torch.equal(out.cpu(), cpu_out) and torch.equal(lens.cpu(),
+                                                           cpu_lens)
+    assert bytes(cpu_out.numpy()) == b"".join(datas)
+    assert pipeline.decode_streams_sharded(streams, 262_144,
+                                           ["cuda:0"] * 2) == datas
+
+
+def test_xla_encode_batch_card_equals_cpu(card):
+    """ops/encode_tpu.py's _encode_batch on the card equal to its CPU run
+    (all five outputs), and encode_blocks_tpu's streams equal."""
+    rng = np.random.default_rng(3)
+    blocks = [gen(131_072, 1, proba=0.6), text_like(131_072, 2),
+              rng.integers(0, 256, 131_072, np.uint8).tobytes(), b"",
+              gen(21, 21), gen(513, 5)]
+    u8 = np.zeros((len(blocks), xla_encode.N), np.uint8)
+    n = np.array([len(d) for d in blocks], np.int64)
+    for k, d in enumerate(blocks):
+        u8[k, :len(d)] = np.frombuffer(d, np.uint8)
+    u8, n = torch.from_numpy(u8), torch.from_numpy(n)
+    k = xla_encode._encode_batch(u8.to(card), n.to(card))
+    p = xla_encode._encode_batch(u8, n)
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+    got = xla_encode.encode_blocks_tpu(blocks, device=card)
+    assert got == xla_encode.encode_blocks_tpu(blocks, device="cpu")
+    assert [runtime.decompress(s, max(len(d), 1))
+            for s, d in zip(got, blocks)] == blocks
+
+
+@pytest.mark.parametrize("level", [11, 49])
+def test_encode_blocks_sharded_on_card(level, card):
+    """encode_blocks_sharded over ["cuda:0"] * 3 byte-equal to one
+    encode_blocks_lanes call: one match_find and one parse_tokens call a
+    shard."""
+    blocks = [gen(131_072 - 7 * i, level + i, proba=0.6) for i in range(5)]
+    blocks += [text_like(131_072, 3), b"", b"abc"]
+    before = te.match_find.launches, te.parse_tokens.launches
+    got = pipeline.encode_blocks_sharded(blocks, level,
+                                         devices=["cuda:0"] * 3)
+    torch.cuda.synchronize()
+    assert te.match_find.launches == before[0] + 3
+    assert te.parse_tokens.launches == before[1] + 3
+    assert got == te.encode_blocks_lanes(blocks, level)
     assert tld.decompress_lanes(got) == blocks

@@ -29,7 +29,11 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, lizard_tpu_torch, lizard_tpu_torch.frame, "
             "lizard_tpu_torch.ops.lane_decode, lizard_tpu_torch.ops.fuse, "
             "lizard_tpu_torch.ops.enc_lanes, lizard_tpu_torch.ops.lane_huf, "
-            "lizard_tpu_torch.ops.pallas_decode; "
+            "lizard_tpu_torch.ops.pallas_decode, lizard_tpu_torch.ops.decode, "
+            "lizard_tpu_torch.ops.encode_tpu, "
+            "lizard_tpu_torch.parallel.pipeline, "
+            "lizard_tpu_torch.parallel.multihost, "
+            "lizard_tpu_torch.utils.profiling, lizard_tpu_torch.entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lizard_tpu')]; print(bad)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

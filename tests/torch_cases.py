@@ -498,3 +498,43 @@ def huf_pack_against_plain(device) -> dict:
         segments += segs.shape[0]
     return {"cases": names, "segments": segments, "statuses": statuses,
             "max_abs_err": 0, "plain_ms": plain_ms, "calls": calls}
+
+
+# ------------------------------- decode_streams_global in a gloo group
+
+
+def global_decode_datas() -> list[bytes]:
+    """The buffers of the two-process decode_streams_global check: 11
+    streams of 6-14 KB (one inner block each) and one of 140 KB (two)."""
+    return ([gen(6_000 + 800 * i, seed=i, proba=0.6) for i in range(11)]
+            + [gen(140_000, seed=11, proba=0.6)])
+
+
+def global_decode_worker(rank: int, world: int, store: str, out: str,
+                         local: int) -> None:
+    """One rank of a gloo group of `world` processes (parallel.multihost.
+    init_process over the file store `store`): decode_streams_global of
+    global_decode_datas() at level 12 over `local` CPU shards a rank.
+    Writes JSON to `out`: the offsets, the streams this rank decoded and
+    whether each equals its input. The process target of
+    tests/test_torch_parallel.py's gloo test, here because a spawned child
+    imports the target's module, and this one imports no JAX."""
+    import json
+
+    from lizard_tpu_torch import runtime
+    from lizard_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(1)
+    if not multihost.init_process(f"file://{store}", world, rank):
+        raise RuntimeError("init_process did not join a group")
+    try:
+        datas = global_decode_datas()
+        results, offs = multihost.decode_streams_global(
+            [runtime.compress(d, 12) for d in datas], 131072,
+            ["cpu"] * local)
+        own = [i for i, r in enumerate(results) if r is not None]
+        with open(out, "w") as f:
+            json.dump({"offs": offs.tolist(), "own": own,
+                       "equal": [results[i] == datas[i] for i in own]}, f)
+    finally:
+        torch.distributed.destroy_process_group()
