@@ -125,8 +125,21 @@ on the card, and checks every result against the input bytes:
    phases 18-23 time their host steps with utils/profiling.py's stage
    timers, and their kernels' launches join the kernels line's
    launches_by_path;
-24. the kernels line (one JSON object per kernel);
-25. the last line: {"ok": true, "device": {...}}.
+24. the oracle (ref/, serial Python on the host: liblizard's bytes): its
+   streams at every level 10-49 (64 KB of gen; 16 KB of a 16-symbol
+   alphabet at the 11 optimal-parser levels, a Huffman stream asserted at
+   30-49), each family decoded by one decompress_lanes call and every
+   stream by api.decompress, equal to the input and to the native decoder,
+   lz_decode and huf_decode held against their plain versions on each
+   family's batch; its linked frames of 512 KB at -10, -21 and -41 (four
+   128 KB frame blocks, matches across them) and an independent -35 frame
+   with a content size, decoded by decompress_frame, equal to the input and
+   the native frame decoder; decode_frame_sharded over ["cuda:0"] * 4
+   refusing a wrong content size, trailing bytes and a second frame; the
+   oracle's encode time per level (the card machine's CPU) and the phase's
+   wall time;
+25. the kernels line (one JSON object per kernel);
+26. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -186,6 +199,12 @@ XLA_ENC_LEVEL = 10             # all-XLA encode (fastLZ4 only)
 SHARDED_ENC_LEVELS = (11, 49)  # sharded encode
 SHARDED_REPS = 3
 XLA_TRACE_STEPS = 64           # parse steps under torch.profiler
+ORACLE_BYTES = 64 << 10        # oracle streams, the 29 levels that are not
+ORACLE_OPT_BYTES = 16 << 10    # optimal-parser, and the 11 that are
+ORACLE_FRAME_BYTES = 512 << 10
+ORACLE_LINKED_LEVELS = (10, 21, 41)   # linked, four 128 KB frame blocks
+ORACLE_FRAME_LEVEL = 35        # an independent frame with a content size
+C2_BYTES = 20_000              # the frame the sharded decode must refuse
 
 
 def emit(phase: str, **kv) -> None:
@@ -1394,6 +1413,159 @@ def entry_phase(entry, te, teh, tld, th) -> dict:
     return rec
 
 
+def oracle_phase(tld, th, runtime, smi: str) -> dict:
+    """Phase 24: the oracle's streams and frames (ref/block_encode.py,
+    frame.compress_frame: liblizard's bytes, serial on the host) decoded on
+    the card. Every level 10-49: ORACLE_BYTES of gen (ORACLE_OPT_BYTES of
+    tests/torch_cases.py::alphabet16 at the optimal-parser levels), a
+    Huffman flag asserted in a block at 30-49; each family's streams
+    decoded by one decompress_lanes call and each stream by api.decompress,
+    all equal to the input and to the native decoder; lz_decode and
+    huf_decode held against their plain versions on each family's staged
+    batch. Linked frames of ORACLE_FRAME_BYTES at ORACLE_LINKED_LEVELS (a
+    match crosses frame blocks: a later frame block does not decode alone)
+    and an independent frame at ORACLE_FRAME_LEVEL with a content size,
+    decoded by frame.decompress_frame, equal to the input and to the native
+    frame decoder. Then C2: decode_frame_sharded over ["cuda:0"] * SHARDS
+    raises FrameError for a content size one off, 4 junk bytes after the
+    frame and a second frame appended (a -12 frame of C2_BYTES, one block:
+    the all-XLA decoder takes a parse step a token), and decodes the frame
+    itself. The kernels' calls are counted from 0 just before each path
+    and read just after. Emits and returns the record."""
+    import torch
+    from lizard_tpu_torch import api
+    from lizard_tpu_torch import frame as tframe
+    from lizard_tpu_torch.errors import CorruptError
+    from lizard_tpu_torch.format.constants import FLAG_FLAGS, FLAG_LITERALS
+    from lizard_tpu_torch.format.levels import LEVELS
+    from lizard_tpu_torch.ops.split import inner_block_spans
+    from lizard_tpu_torch.parallel import pipeline as pp
+    from lizard_tpu_torch.ref import block_decode, block_encode
+    from lizard_tpu_torch.utils.datagen import gen
+    from tests.torch_cases import alphabet16, is_optimal
+    t_phase = time.perf_counter()
+    plain_input = gen(ORACLE_BYTES, seed=24)
+    opt_input = alphabet16(ORACLE_OPT_BYTES, 1)
+    datas, streams, encode_s = {}, {}, {}
+    for level in range(10, 50):
+        datas[level] = opt_input if is_optimal(level) else plain_input
+        t = time.perf_counter()
+        streams[level] = block_encode.compress(datas[level], level)
+        encode_s[level] = time.perf_counter() - t
+        if level >= 30 and not any(
+                streams[level][a] & (FLAG_FLAGS | FLAG_LITERALS)
+                for a, _ in inner_block_spans(streams[level])):
+            raise AssertionError(f"oracle level {level}: no Huffman stream")
+        if runtime.decompress(streams[level],
+                              len(datas[level])) != datas[level]:
+            raise AssertionError(f"oracle level {level}: native decode")
+    # [huf_decode, lz_decode] calls of each path
+    launches = {"decompress_lanes": [0, 0], "api_decompress": [0, 0]}
+    families = {}
+    for level in streams:
+        families.setdefault(LEVELS[level].codewords, []).append(level)
+    errs = {"lz": 0, "huf": 0}
+    plain = {}
+    for fam, levels in families.items():
+        ss = [streams[lv] for lv in levels]
+        tld.lz_decode.launches = th.huf_decode.launches = 0
+        got = tld.decompress_lanes(ss)
+        torch.cuda.synchronize()
+        launches["decompress_lanes"][0] += th.huf_decode.launches
+        launches["decompress_lanes"][1] += tld.lz_decode.launches
+        if got != [datas[lv] for lv in levels]:
+            raise AssertionError(f"oracle {fam.name}: decompress_lanes")
+        huf, rec = both_against_plain(th, tld, ss,
+                                      f"oracle streams, {fam.name} levels")
+        errs["lz"] = max(errs["lz"], rec["max_abs_err"])
+        errs["huf"] = max(errs["huf"], huf["max_abs_err"])
+        plain[fam.name] = {"lz_plain_ms": rec["plain_ms"],
+                           "huf_plain_ms": huf["plain_ms"]}
+    for level, s in streams.items():
+        tld.lz_decode.launches = th.huf_decode.launches = 0
+        got = api.decompress(s)                       # device=None: card
+        torch.cuda.synchronize()
+        launches["api_decompress"][0] += th.huf_decode.launches
+        launches["api_decompress"][1] += tld.lz_decode.launches
+        if got != datas[level]:
+            raise AssertionError(f"oracle level {level}: api.decompress")
+    if (launches["api_decompress"] != [20, 40]
+            or launches["decompress_lanes"] != [2, 2]):
+        raise AssertionError(f"oracle streams: launches {launches}")
+    # frames of the oracle, decoded on the card
+    fdata = gen(ORACLE_FRAME_BYTES, seed=25)
+    kinds = [(f"linked -{lv}", lv, {"block_linked": True})
+             for lv in ORACLE_LINKED_LEVELS]
+    kinds.append((f"independent -{ORACLE_FRAME_LEVEL}", ORACLE_FRAME_LEVEL,
+                  {"content_size": True}))
+    launches["decompress_frame"] = [0, 0]
+    frame_recs = {}
+    for name, level, kw in kinds:
+        t = time.perf_counter()
+        fr = tframe.compress_frame(fdata, level, block_size_id=1, **kw)
+        host_encode_s = time.perf_counter() - t
+        info = tframe.parse_frame_header(fr)
+        blocks = tframe._frame_blocks(fr, info.header_size)[0]
+        if info.block_linked != name.startswith("linked"):
+            raise AssertionError(f"oracle frame {name}: linked flag")
+        tld.lz_decode.launches = th.huf_decode.launches = 0
+        got = tframe.decompress_frame(fr)             # device=None: card
+        torch.cuda.synchronize()
+        n = [th.huf_decode.launches, tld.lz_decode.launches]
+        launches["decompress_frame"] = [
+            a + b for a, b in zip(launches["decompress_frame"], n)]
+        if got != fdata or runtime.decompress_frame(fr, len(fdata)) != fdata:
+            raise AssertionError(f"oracle frame {name}: decode != input")
+        if n[1] != 1 or (level >= 30) != (n[0] == 1):
+            raise AssertionError(f"oracle frame {name}: launches {n}")
+        crossing = 0
+        if info.block_linked:                   # later blocks need earlier
+            for stored, blob in blocks[1:]:
+                try:
+                    if not stored:
+                        block_decode.decompress(blob)
+                except CorruptError:
+                    crossing += 1
+            if not crossing:
+                raise AssertionError(f"oracle frame {name}: no match "
+                                     "crosses a frame block")
+        frame_recs[name] = {"host_encode_s": host_encode_s,
+                            "frame_bytes": len(fr),
+                            "frame_blocks": len(blocks),
+                            "blocks_reaching_back": crossing,
+                            "launches": n}
+    # C2: the sharded frame decode refuses what decompress_frame refuses
+    c2_frame = tframe.compress_frame(gen(C2_BYTES, seed=26), 12,
+                                     content_size=True)
+    size = bytearray(c2_frame)
+    size[6:14] = (C2_BYTES + 1).to_bytes(8, "little")
+    size[14] = (runtime.xxh32(bytes(size[4:14])) >> 8) & 0xFF
+    devices = ["cuda:0"] * SHARDS
+    c2 = {}
+    for name, bad in (("content_size", bytes(size)),
+                      ("junk", c2_frame + b"\x01\x02\x03\x04"),
+                      ("second_frame", c2_frame + c2_frame)):
+        try:
+            pp.decode_frame_sharded(bad, devices)
+        except tframe.FrameError as e:
+            c2[name] = str(e)
+        else:
+            raise AssertionError(f"C2 {name}: decode_frame_sharded accepted")
+    if pp.decode_frame_sharded(c2_frame, devices) != gen(C2_BYTES, seed=26):
+        raise AssertionError("C2: the good frame did not decode")
+    rec = {"levels": 40, "bytes": ORACLE_BYTES, "opt_bytes": ORACLE_OPT_BYTES,
+           "compressed_bytes": {str(lv): len(s) for lv, s in streams.items()},
+           "host_encode_s_by_level": {str(lv): v
+                                      for lv, v in encode_s.items()},
+           "host_encode_s": sum(encode_s.values()),
+           "host": "the card machine's CPU (the oracle is serial Python)",
+           "launches": launches, "max_abs_err": errs, "plain": plain,
+           "frames": frame_recs, "c2_raised": c2,
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    emit("oracle", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,7 +2057,14 @@ def main() -> int:
                      "dryrun_multichip": ep["launches"][w]}
                  for w in ENC_WRAPPERS}
 
-    # 24. kernels line: launches summed over every path's run, counted
+    # 24. the oracle's streams at every level and its frames, on the card;
+    # C2 on the card
+    oc = oracle_phase(tld, th, runtime, smi)
+    max_err = max(max_err, oc["max_abs_err"]["lz"])
+    huf_err = max(huf_err, oc["max_abs_err"]["huf"])
+    oracle_paths = {f"oracle_{k}": v for k, v in oc["launches"].items()}
+
+    # 25. kernels line: launches summed over every path's run, counted
     # from 0 just before it and read just after
     lz_paths = {"decompress_lanes": main_launches,
                 "sweep": sweep_launches[1],
@@ -1898,7 +2077,8 @@ def main() -> int:
                 "decode_streams_sharded_lanes": sum(
                     n["lz_decode"] for r in sl.values()
                     for n in r["launches"].values()),
-                "dryrun_multichip": ep["launches"]["lz_decode"]}
+                "dryrun_multichip": ep["launches"]["lz_decode"],
+                **{k: v[1] for k, v in oracle_paths.items()}}
     lz_kernel_paths = {
         "decompress_lanes": main_kernel_launches,
         "decode_batch_pallas": sum(r["kernel_launches"] for r in pb.values()),
@@ -1913,7 +2093,8 @@ def main() -> int:
                  "decode_streams_sharded_lanes": sum(
                      n["huf_decode"] for r in sl.values()
                      for n in r["launches"].values()),
-                 "dryrun_multichip": ep["launches"]["huf_decode"]}
+                 "dryrun_multichip": ep["launches"]["huf_decode"],
+                 **{k: v[0] for k, v in oracle_paths.items()}}
     t10 = timing[MAIN_LEVELS[0]]
     h41 = huf_timing[HUF_LEVELS[-1]]
     print(json.dumps({"kernels": [{
@@ -2003,7 +2184,7 @@ def main() -> int:
                         enc_paths[k[1]])
           for k in ENC_KERNELS]}), flush=True)
 
-    # 25. last line
+    # 26. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

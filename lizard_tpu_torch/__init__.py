@@ -8,8 +8,12 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``errors``             -- CorruptError, HufError
 - ``runtime``            -- ctypes binding over the shared native runtime
 - ``device``             -- the device rule (resolve_device)
-- ``ref.huf``            -- Huff0 weights header and decode tables (host)
-- ``ref.huf_encode``     -- Huff0 code tables and weights headers (host)
+- ``ref``                -- the bit-exact oracle, serial Python on the
+                            host (the lizard_tpu/ref counterparts):
+                            ``block_decode``, ``block_encode`` with
+                            ``parsers``, ``parser_optimal`` and ``price``,
+                            and the Huff0 codec ``huf`` / ``huf_encode``
+                            (whose headers and tables the device paths use)
 - ``ops.split``          -- host split of streams into a flat block batch
 - ``ops.huf128``         -- Huff0 decode: the CUDA kernel csrc/huf_decode.cu,
                             its host plan, wrapper and plain PyTorch version
@@ -42,13 +46,18 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``utils.profiling``    -- torch.profiler traces and host stage timers
 - ``entry``              -- the all-XLA decode step and a dry run of every
                             sharded path
+- ``utils.xxh``          -- xxh32 and xxh64 from the specification
 - ``frame`` / ``api``    -- frame container and one-shot entry points
-                            (compress(backend="gpu"), compress_frame_lanes,
-                            compress_frame_tpu, decompress(backend="gpu" or
-                            "xla"), decompress_frame and decompress_frames:
+                            (compress(backend="gpu", "native" or "ref"),
+                            compress_frame(backend="gpu" or "ref"),
+                            compress_frame_lanes, compress_frame_tpu,
+                            decompress(backend="gpu", "xla" or "ref"),
+                            decompress_frame and decompress_frames:
                             linked, independent and skippable frames)
 
-Every entry point runs on the card unless the caller passes device="cpu".
+Every entry point runs on the card unless the caller passes device="cpu";
+the oracle runs on the host, reached only through backend="ref" or its own
+modules.
 Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
 default); entropy="host" decodes the Huffman stage with the native Huff0.
 Compressing (``compress``, backend="gpu" by default, levels 10-49) finds
@@ -62,6 +71,7 @@ __version__ = "0.1.0"
 
 from lizard_tpu_torch.api import (  # noqa: F401
     compress,
+    compress_frame,
     decompress,
     decompress_frame,
 )

@@ -9,18 +9,16 @@ of __graft_entry__.py.
   sharded lane decode of both codeword families, decode_streams_global and
   the sharded encode with the far config and the chain config.
 
-The port has no oracle yet (lizard_tpu/ref/ is still to port), so the
-streams and frames come from the native encoder (runtime.compress,
-frame.compress_frame_fast) where the JAX entry uses the reference encoder,
-and the encoded blocks are checked with the native decoder
-(runtime.decompress) and the port's lane decoder.
+As in __graft_entry__.py, the streams and the frame come from the oracle
+(ref/block_encode.compress, frame.compress_frame: liblizard's bytes), and
+the sharded encoder's blocks are checked with the oracle's decoder
+(ref/block_decode.decompress) and with the port's lane decoder.
 """
 
 import torch
 
-from lizard_tpu_torch import runtime
 from lizard_tpu_torch.device import resolve_device
-from lizard_tpu_torch.frame import compress_frame_fast
+from lizard_tpu_torch.frame import compress_frame
 from lizard_tpu_torch.ops.decode import GUARD, resolve_output, token_parse_lz4
 from lizard_tpu_torch.ops.enc_lanes import EncCfg
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
@@ -29,6 +27,8 @@ from lizard_tpu_torch.parallel.multihost import decode_streams_global
 from lizard_tpu_torch.parallel.pipeline import (
     decode_frame_sharded, decode_streams_sharded_lanes, encode_blocks_sharded,
     resolve_devices)
+from lizard_tpu_torch.ref.block_decode import decompress
+from lizard_tpu_torch.ref.block_encode import compress
 from lizard_tpu_torch.utils.datagen import gen
 
 PROBES = (8, 12, 16, 24, 32, 64, 128, 256)
@@ -39,7 +39,7 @@ def _example_batch(n_streams: int = 2, size: int = 3000, level: int = 14):
     family = None
     datas = [gen(size, seed=s) for s in range(n_streams)]
     for i, d in enumerate(datas):
-        family = split_stream(runtime.compress(d, level), acc, i)
+        family = split_stream(compress(d, level), acc, i)
     return finalize(acc, family), sum(map(len, datas))
 
 
@@ -70,8 +70,8 @@ def entry(device=None):
 
 def _check_encoded(blocks, encs, device, what: str) -> None:
     for d, e in zip(blocks, encs):
-        if runtime.decompress(e, max(len(d), 1)) != d:
-            raise AssertionError(f"{what}: native round trip mismatch")
+        if decompress(e, max_out=max(len(d), 1)) != d:
+            raise AssertionError(f"{what}: oracle round trip mismatch")
     if decompress_lanes(encs, device=device) != list(blocks):
         raise AssertionError(f"{what}: lane decode round trip mismatch")
 
@@ -87,7 +87,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
 
     # a multi-block blockIndependent frame over the all-XLA decoder
     data = gen(140_000 * max(2, n_devices) // 2, seed=3)
-    if decode_frame_sharded(compress_frame_fast(data, 12), devs) != data:
+    if decode_frame_sharded(compress_frame(data, 12), devs) != data:
         raise AssertionError("sharded frame decode mismatch")
 
     # the lane decoder (lz_decode), both codeword families
@@ -95,7 +95,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         datas = [gen(1400 + 23 * i, seed=20 + i, proba=0.6)
                  for i in range(2 * n_devices + 1)]
         got = decode_streams_sharded_lanes(
-            [runtime.compress(d, level) for d in datas], devs)
+            [compress(d, level) for d in datas], devs)
         if got != datas:
             raise AssertionError(f"sharded lane decode mismatch (L{level})")
 
@@ -103,7 +103,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     # per-block lengths
     datas = [gen(20_000 + 1000 * i, seed=i) for i in range(n_devices + 3)]
     results, offs = decode_streams_global(
-        [runtime.compress(d, 12) for d in datas], 131072, devs)
+        [compress(d, 12) for d in datas], 131072, devs)
     if results != datas or offs.shape[0] != n_devices:
         raise AssertionError("global decode mismatch")
 

@@ -1,5 +1,5 @@
-"""Lizard frame format, decode side and the fast encoder (the port of the
-matching parts of lizard_tpu/frame.py; doc/lizard_Frame_format.md,
+"""Lizard frame format: the one-shot encoders and the decoders (the port of
+the matching parts of lizard_tpu/frame.py; doc/lizard_Frame_format.md,
 lib/lizard_frame.c).
 
 Container: magic, descriptor (FLG/BD/contentSize/HC), LE32-size-prefixed
@@ -14,11 +14,14 @@ matches reach across frame blocks through the chain's own output, the
 reference's window_base=0), after the Huff0 kernel at levels 30-49
 (ops/fuse.py); the frame blocks may mix codeword families.
 `decompress_frame_lanes` is the JAX function of that name: blockIndependent
-frames of one family only. `compress_frame_lanes` compresses every frame
-block on the card with the device encoder (ops/enc_lanes.py), Huff0 stage
-included (ops/enc_huf.py); `compress_frame_tpu` is the JAX function of that
-name, its engine="xla" the plain-PyTorch all-XLA encoder
-(ops/encode_tpu.py).
+frames of one family only. `compress_frame` is LizardF_compressFrame with
+the oracle encoder (ref/block_encode.py), linked or independent blocks,
+byte-equal to liblizard, serial on the host. `compress_frame_lanes`
+compresses every frame block on the card with the device encoder
+(ops/enc_lanes.py), Huff0 stage included (ops/enc_huf.py);
+`compress_frame_tpu` is the JAX function of that name, its engine="xla"
+the plain-PyTorch all-XLA encoder (ops/encode_tpu.py). Every decoder ends
+with `frame_end` and `whole_frame`, the checks after the endmark.
 """
 
 from lizard_tpu_torch import runtime
@@ -39,6 +42,7 @@ from lizard_tpu_torch.ops.lane_decode import (
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
 from lizard_tpu_torch.ops.split import (
     finalize, inner_block_spans, new_accumulator, split_stored, split_stream)
+from lizard_tpu_torch.ref.block_encode import DICT, Ctx, Tables, compress_range
 from lizard_tpu_torch.runtime import xxh32
 
 
@@ -155,15 +159,18 @@ def compress_frame_fast(data: bytes, level: int = 11,
                   parts, data, content_checksum)
 
 
-def _header(level, block_size_id, size, content_checksum, content_size):
+def _header(level, block_size_id, size, content_checksum, content_size,
+            block_linked=False):
     """(level, block size, header bytes without the magic and the header
-    checksum) of a blockIndependent frame."""
+    checksum) of a frame: blockIndependent unless block_linked, which an
+    input of one block at most turns off (lizard_frame.c:285-286)."""
     level = validate_level(level)
     if block_size_id == 0:
-        block_size_id = 1
+        block_size_id = 1  # LIZARDF_BLOCKSIZEID_DEFAULT (lizard_frame.c:120)
     block_size_id = _optimal_bsid(block_size_id, size)
-    flg = (1 << 6) | (1 << 5) | (int(content_checksum) << 2) \
-        | ((1 if content_size else 0) << 3)
+    linked = block_linked and size > LIZARDF_BLOCK_SIZES[block_size_id]
+    flg = (1 << 6) | ((0 if linked else 1) << 5) \
+        | (int(content_checksum) << 2) | ((1 if content_size else 0) << 3)
     header = bytearray([flg, (block_size_id & 7) << 4])
     if content_size:
         header += size.to_bytes(8, "little")
@@ -187,6 +194,39 @@ def _frame(header, comps, parts, data, content_checksum) -> bytes:
     if content_checksum:
         out += xxh32(data).to_bytes(4, "little")
     return bytes(out)
+
+
+def compress_frame(data: bytes, level: int = 17, block_size_id: int = 0,
+                   block_linked: bool = False, content_checksum: bool = True,
+                   content_size: bool = False) -> bytes:
+    """LizardF_compressFrame (lizard_frame.c:260-310) with the oracle
+    encoder (ref/block_encode.py), byte-equal to liblizard and to
+    lizard_tpu/frame.py::compress_frame. One Tables is reused across frame
+    blocks without clearing, which the bytes show. Independent blocks
+    (Lizard_compress_extState) take a fresh Ctx and window each, with
+    next_to_update reset; linked blocks (Lizard_compress_continue) are one
+    Ctx over the whole input. A block compressed to more than its size
+    less one byte is stored (LizardF_compressBlock, lizard_frame.c:456-469).
+    Serial Python on the host."""
+    level, block_size, header = _header(level, block_size_id, len(data),
+                                        content_checksum, content_size,
+                                        block_linked)
+    linked = not header[0] & (1 << 5)   # as _header decided
+    params = LEVELS[level]
+    tables = Tables(params)
+    ctx = Ctx(level, params)
+    parts, comps = [], []
+    for pos in range(0, len(data), block_size):
+        part = data[pos:pos + block_size]
+        if linked:
+            comps.append(compress_range(ctx, tables, data, pos,
+                                        pos + len(part)))
+        else:
+            ctx = Ctx(level, params)
+            tables.next_to_update = DICT  # Lizard_init resets it
+            comps.append(compress_range(ctx, tables, part, 0, len(part)))
+        parts.append(part)
+    return _frame(header, comps, parts, data, content_checksum)
 
 
 def compress_frame_lanes(data: bytes, level: int = 11,
@@ -315,18 +355,34 @@ def decompress_frame_lanes(src: bytes, device=None,
         if kind == "stream" and len(decoded[v]) > max_block:
             raise FrameError("block decodes beyond the frame's block size")
         out += v if kind == "stored" else decoded[v]
+    out = bytes(out)
+    whole_frame(src, frame_end(src, p, info, out))
+    return out
+
+
+def frame_end(src: bytes, p: int, info: FrameInfo, out: bytes,
+              verify_checksum: bool = True) -> int:
+    """The checks after a frame's endmark at `p`, of every frame decoder:
+    the content checksum (present, and equal to `out`'s when
+    verify_checksum) and the header's content size against `out`. Returns
+    the position after the frame."""
     if info.content_checksum:
         if p + 4 > len(src):
             raise FrameError("missing content checksum")
         stored_crc = int.from_bytes(src[p:p + 4], "little")
         p += 4
-        if xxh32(bytes(out)) != stored_crc:
+        if verify_checksum and xxh32(out) != stored_crc:
             raise FrameError("content checksum mismatch")
     if info.content_size is not None and info.content_size != len(out):
         raise FrameError("content size mismatch")
-    if p != len(src):
+    return p
+
+
+def whole_frame(src: bytes, end: int) -> None:
+    """Refuse any byte after a frame that ends at `end`, a second frame
+    included."""
+    if end != len(src):
         raise FrameError("trailing data after frame")
-    return bytes(out)
 
 
 def _frame_blocks(src: bytes, p: int) -> tuple[list[tuple[bool, bytes]], int]:
@@ -410,16 +466,7 @@ def decompress_one_frame(src: bytes, verify_checksum: bool = True,
     out = _decode_frame_blocks(blocks, info.block_linked,
                                LIZARDF_BLOCK_SIZES[info.block_size_id], dev,
                                entropy)
-    if info.content_checksum:
-        if p + 4 > len(src):
-            raise FrameError("missing content checksum")
-        stored_crc = int.from_bytes(src[p:p + 4], "little")
-        p += 4
-        if verify_checksum and xxh32(out) != stored_crc:
-            raise FrameError("content checksum mismatch")
-    if info.content_size is not None and info.content_size != len(out):
-        raise FrameError("content size mismatch")
-    return out, p
+    return out, frame_end(src, p, info, out, verify_checksum)
 
 
 def decompress_frame(src: bytes, verify_checksum: bool = True, device=None,
@@ -428,8 +475,7 @@ def decompress_frame(src: bytes, verify_checksum: bool = True, device=None,
     byte after it, a second frame included (decompress_frames takes
     those)."""
     out, consumed = decompress_one_frame(src, verify_checksum, device, entropy)
-    if consumed != len(src):
-        raise FrameError("trailing data after frame")
+    whole_frame(src, consumed)
     return out
 
 

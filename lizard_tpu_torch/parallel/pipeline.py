@@ -23,12 +23,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from lizard_tpu_torch import runtime
 from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.format.constants import LIZARDF_BLOCK_SIZES
 from lizard_tpu_torch.format.levels import Codewords
 from lizard_tpu_torch.frame import (
-    FrameError, _frame_blocks, parse_frame_header)
+    FrameError, _frame_blocks, frame_end, parse_frame_header, whole_frame)
 from lizard_tpu_torch.ops.decode import decode_batch
 from lizard_tpu_torch.ops.enc_lanes import cfg_for_level, encode_blocks_lanes
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
@@ -145,23 +144,22 @@ def decode_frame_sharded(frame: bytes, devices=None) -> bytes:
     """Decode a blockIndependent frame with its compressed blocks spread
     over `devices` (decode_streams_sharded); stored blocks are spliced in
     on the host, in frame order. Raises FrameError as the JAX function does,
-    and for a truncated block, which it does not check."""
+    and, with the messages of frame.decompress_frame, for a truncated block,
+    a missing checksum, a wrong content size and bytes after the frame
+    (a second frame included), which the JAX function does not check."""
     info = parse_frame_header(frame)
     if info.block_linked:
         raise FrameError("sharded decode requires independent blocks")
     units, p = _frame_blocks(frame, info.header_size)
-    crc = (int.from_bytes(frame[p:p + 4], "little")
-           if info.content_checksum else None)
-
     decoded = iter(decode_streams_sharded(
         [blob for stored, blob in units if not stored],
         LIZARDF_BLOCK_SIZES[info.block_size_id], devices))
     out = bytearray()
     for stored, blob in units:
         out += blob if stored else next(decoded)
-    if crc is not None and runtime.xxh32(bytes(out)) != crc:
-        raise FrameError("content checksum mismatch")
-    return bytes(out)
+    out = bytes(out)
+    whole_frame(frame, frame_end(frame, p, info, out))
+    return out
 
 
 def decode_streams_sharded_lanes(streams: list[bytes], devices=None,

@@ -1,6 +1,6 @@
-"""The Huff0 encoder's header side, bit-exact with the reference entropy
-backend (lib/entropy/huf_compress.c, fse_compress.c): the port's copy of the
-header half of lizard_tpu/ref/huf_encode.py.
+"""The Huff0 encoder, bit-exact with the reference entropy backend
+(lib/entropy/huf_compress.c, fse_compress.c): the port's copy of
+lizard_tpu/ref/huf_encode.py.
 
 - count with the trimming of FSE_count (`fse_count`, numpy's bincount);
 - tree build: HUF_sort's rank-bucket insertion (huf_compress.c:305-325),
@@ -12,9 +12,11 @@ header half of lizard_tpu/ref/huf_encode.py.
 
 Exact replication matters: the tie-breaks of HUF_sort and the rounding of
 the normalisation decide the canonical code, hence the compressed sizes.
-The bitstreams themselves are packed by ops/enc_huf.py (the kernel B8 and
-its plain version). Counts stay Python ints: the normalisation multiplies
-them by steps of up to 2^62.
+The device encoder packs the bitstreams in ops/enc_huf.py (the kernel B8
+and its plain version); the oracle packs them serially here
+(`_huf_encode_1x`, `huf_compress`, the 4-stream HUF_compress with its
+RLE, not-compressible, header and segment-size gates). Counts stay
+Python ints: the normalisation multiplies them by steps of up to 2^62.
 """
 
 import numpy as np
@@ -584,3 +586,66 @@ def huf_write_ctable(sym_nb_bits, max_sym, huff_log) -> bytes | None:
     for n in range(0, max_sym, 2):
         out.append((w[n] << 4) + w[n + 1])
     return bytes(out)
+
+
+# ------------------------------------------------- serial 4-stream encode --
+
+def _huf_encode_1x(src, sym_val, sym_nb_bits) -> bytes:
+    """HUF_compress1X_usingCTable (huf_compress.c:427-470): symbols encoded
+    back-to-front in the reference's exact order."""
+    bw = BitWriter()
+    n = len(src) & ~3
+    rem = len(src) & 3
+    if rem >= 3:
+        bw.add(sym_val[src[n + 2]], sym_nb_bits[src[n + 2]])
+    if rem >= 2:
+        bw.add(sym_val[src[n + 1]], sym_nb_bits[src[n + 1]])
+    if rem >= 1:
+        bw.add(sym_val[src[n]], sym_nb_bits[src[n]])
+    while n > 0:
+        bw.add(sym_val[src[n - 1]], sym_nb_bits[src[n - 1]])
+        bw.add(sym_val[src[n - 2]], sym_nb_bits[src[n - 2]])
+        bw.add(sym_val[src[n - 3]], sym_nb_bits[src[n - 3]])
+        bw.add(sym_val[src[n - 4]], sym_nb_bits[src[n - 4]])
+        n -= 4
+    return bw.close()
+
+
+def huf_compress(src: bytes) -> bytes | None:
+    """HUF_compress (4 streams, maxSymbolValue 255, tableLog 11,
+    huf_compress.c:473-574): the serial encoder of the oracle. Returns the
+    compressed blob, the one byte of an RLE stream, or None where the
+    reference returns 0 (not compressible enough, a header that leaves no
+    gain or cannot be written, a segment over 0xFFFF bytes): the caller then
+    stores the stream raw."""
+    n = len(src)
+    if n == 0:
+        return None
+    if n > 128 * 1024:
+        raise ValueError("HUF block too large")
+
+    count, max_sym, largest = fse_count(src, 255)
+    if largest == n:
+        return src[:1]  # rle
+    if largest <= (n >> 7) + 1:
+        return None  # not compressible enough
+
+    huff_log = fse_optimal_table_log(HUF_TABLELOG_DEFAULT, n, max_sym, minus=1)
+    sym_nb_bits, sym_val, huff_log = huf_build_ctable(count, max_sym, huff_log)
+    header = huf_write_ctable(sym_nb_bits, max_sym, huff_log)
+    if header is None or len(header) + 12 >= n:
+        return None
+
+    seg = (n + 3) // 4
+    parts = []
+    for i in range(4):
+        chunk = src[i * seg: (i + 1) * seg] if i < 3 else src[3 * seg:]
+        c = _huf_encode_1x(chunk, sym_val, sym_nb_bits)
+        if len(c) == 0 or len(c) > 0xFFFF:
+            return None
+        parts.append(c)
+    jump = b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
+    out = header + jump + b"".join(parts)
+    if len(out) >= n - 1:
+        return None
+    return out

@@ -4,14 +4,17 @@
 The port uses these of its entry points: the native encoder (`compress`, all
 levels 10-49), the scalar block decoder (`decompress`, a cross-check), the
 Huff0 stream decoder (`huf_decompress`, the host entropy route of levels
-30-49), `xxh32` (frame checksums), and the device encoder's host stage: the
-token emitters (`emit_lz4`, `emit_liz`, `emit_liz_far`) and the Huff0
-stream encoder (`huf_compress`). When the file is missing or does not
-load, it is built with the command of tools/build_native.sh, into a
-temporary file that then replaces the library, both under an exclusive lock
-on native/build/.lock: several processes may start at once (test workers),
-and none loads a half-written library. There is no pure-Python fallback:
-without the library every call raises RuntimeError.
+30-49), the frame decoder (`decompress_frame`, concatenated frames, a
+cross-check), `xxh32` (frame checksums) and `xxh64`, and the device
+encoder's host stage: the token emitters (`emit_lz4`, `emit_liz`,
+`emit_liz_far`) and the Huff0 stream encoder (`huf_compress`). When the
+file is missing or does not load, it is built with the command of
+tools/build_native.sh, into a temporary file that then replaces the
+library, both under an exclusive lock on native/build/.lock: several
+processes may start at once (test workers), and none loads a half-written
+library. There is no pure-Python fallback:
+without the library every call raises RuntimeError, and `available()`
+returns False.
 """
 
 import ctypes
@@ -62,6 +65,12 @@ def _load() -> ctypes.CDLL:
     lib.ltpu_xxh32.restype = ctypes.c_uint32
     lib.ltpu_xxh32.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                ctypes.c_uint32]
+    lib.ltpu_xxh64.restype = ctypes.c_uint64
+    lib.ltpu_xxh64.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                               ctypes.c_uint64]
+    lib.ltpu_frame_decompress.restype = ctypes.c_int64
+    lib.ltpu_frame_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                          ctypes.c_char_p, ctypes.c_size_t]
     lib.ltpu_decompress.restype = ctypes.c_int64
     lib.ltpu_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                     ctypes.c_char_p, ctypes.c_size_t]
@@ -96,8 +105,21 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the native library loads (it is built first if missing)."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def xxh32(data: bytes, seed: int = 0) -> int:
     return _load().ltpu_xxh32(data, len(data), seed)
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    return _load().ltpu_xxh64(data, len(data), seed)
 
 
 def decompress(src: bytes, max_out: int) -> bytes:
@@ -106,6 +128,16 @@ def decompress(src: bytes, max_out: int) -> bytes:
     n = _load().ltpu_decompress(src, len(src), dst, max_out)
     if n < 0:
         raise CorruptError(f"native decompress failed ({n})")
+    return dst.raw[:n]
+
+
+def decompress_frame(src: bytes, max_out: int) -> bytes:
+    """Native decode of a sequence of concatenated frames, skippable ones
+    included, into at most max_out bytes (LizardF_decompress)."""
+    dst = ctypes.create_string_buffer(max(max_out, 1))
+    n = _load().ltpu_frame_decompress(src, len(src), dst, max_out)
+    if n < 0:
+        raise CorruptError(f"native frame decompress failed ({n})")
     return dst.raw[:n]
 
 

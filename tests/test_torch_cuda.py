@@ -3,7 +3,9 @@ encoder's csrc/enc_match.cu, csrc/enc_chain.cu, csrc/enc_parse.cu,
 csrc/huf_encode.cu) against their plain PyTorch versions, on the card, on
 every path that launches them (ops/pallas_decode.py, ops/lane_huf.py and
 the sharded paths of parallel/pipeline.py included); the all-XLA paths
-(ops/decode.py, ops/encode_tpu.py) on the card against their CPU runs. Every test here needs an NVIDIA GPU and skips without one.
+(ops/decode.py, ops/encode_tpu.py) on the card against their CPU runs; the
+oracle's streams (ref/block_encode.py) decoded on the card. Every test here
+needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor lizard_tpu, so it also runs where JAX is
 not installed; tests/conftest.py imports JAX, so run it there with
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from lizard_tpu_torch import api
 from lizard_tpu_torch import frame as tframe
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError, HufError
@@ -33,13 +36,15 @@ from lizard_tpu_torch.parallel import pipeline
 from lizard_tpu_torch.ops.fuse import build_fused_plan
 from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
+from lizard_tpu_torch.ref import block_encode
 from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
 from tests.torch_cases import (HUF_PACK_CASES, chain_tail_maps,
                                huf_pack_against_plain, huf_pack_cases,
-                               lane_split_against_plain, lane_split_cases,
-                               match_edge_blocks, parse_edge_blocks,
-                               segment_plan, tablelog12_blob)
+                               is_optimal, lane_split_against_plain,
+                               lane_split_cases, match_edge_blocks,
+                               parse_edge_blocks, segment_plan,
+                               tablelog12_blob)
 
 pytestmark = pytest.mark.cuda
 
@@ -712,3 +717,20 @@ def test_encode_blocks_sharded_on_card(level, card):
     assert te.parse_tokens.launches == before[1] + 3
     assert got == te.encode_blocks_lanes(blocks, level)
     assert tld.decompress_lanes(got) == blocks
+
+
+# ------------------------------------------------- the oracle's streams (A5)
+
+
+@pytest.mark.parametrize("level", [10, 11, 12, 17, 19, 20, 21, 24, 46])
+def test_oracle_streams_decode_on_card(level, card):
+    """The oracle's streams (ref/block_encode.py: liblizard's bytes) from
+    one level of each parser family, decoded on the card by one
+    decompress_lanes call and by api.decompress, equal to the input."""
+    n = 3000 if is_optimal(level) else 40_000
+    datas = [gen(n, seed=level, proba=0.6), text_like(n, level)]
+    streams = [block_encode.compress(d, level) for d in datas]
+    before = tld.lz_decode.launches
+    assert tld.decompress_lanes(streams) == datas
+    assert tld.lz_decode.launches == before + 1
+    assert [api.decompress(s) for s in streams] == datas

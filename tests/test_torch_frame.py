@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import lizard_tpu.frame as jframe
+from lizard_tpu.ref.block_encode import compress as jref_compress
 import lizard_tpu_torch
 from lizard_tpu import runtime as jrt
 import lizard_tpu_torch.frame as tframe
@@ -78,8 +79,12 @@ def test_api(monkeypatch):
         assert lizard_tpu_torch.decompress(comp, device="cpu") == data
         with pytest.raises(CorruptError):
             lizard_tpu_torch.decompress(comp, max_out=1000, device="cpu")
+    small = data[:5000]
+    comp = lizard_tpu_torch.compress(small, 10, backend="ref")
+    assert comp == jref_compress(small, 10)
+    assert lizard_tpu_torch.decompress(comp, backend="ref") == small
     with pytest.raises(NotImplementedError):
-        lizard_tpu_torch.compress(data, 10, backend="ref")
+        lizard_tpu_torch.compress(data, 10, backend="tpu")
     frame = tframe.compress_frame_fast(data, 10)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -21,7 +21,8 @@ from lizard_tpu.parallel import pipeline as JP
 from lizard_tpu_torch import entry, runtime
 from lizard_tpu_torch.format.constants import (
     FLAG_FLAGS, FLAG_LITERALS, LIZARD_BLOCK_SIZE)
-from lizard_tpu_torch.frame import FrameError, compress_frame_fast
+from lizard_tpu_torch.frame import (
+    FrameError, compress_frame_fast, decompress_frame)
 from lizard_tpu_torch.ops import enc_lanes as te
 from lizard_tpu_torch.ops.decode import decode_batch
 from lizard_tpu_torch.ops.encode_tpu import encode_blocks_tpu
@@ -121,6 +122,38 @@ def test_decode_frame_sharded_equals_jax():
     linked = frame[:4] + bytes([frame[4] & ~(1 << 5)]) + frame[5:]
     with pytest.raises(FrameError, match="header checksum|independent"):
         PP.decode_frame_sharded(linked, ["cpu"] * 2)
+
+
+@pytest.mark.parametrize("level", [12, 21])
+def _c2_cases():
+    """(name, a malformed variant of a 300,000-byte -12 frame with a content
+    size) for the checks after a frame's endmark."""
+    frame = compress_frame_fast(gen(300_000, seed=8, proba=0.6), 12,
+                                content_size=True)
+    size = bytearray(frame)
+    size[6:14] = (300_001).to_bytes(8, "little")
+    size[14] = (runtime.xxh32(bytes(size[4:14])) >> 8) & 0xFF
+    return frame, {"content_size": bytes(size),
+                   "junk": frame + b"\x01\x02\x03\x04",
+                   "second_frame": frame + frame, "cut_checksum": frame[:-1]}
+
+
+C2_FRAME, C2_CASES = _c2_cases()
+
+
+@pytest.mark.parametrize("case", sorted(C2_CASES))
+def test_decode_frame_sharded_refuses_like_decompress_frame(case):
+    """C2: a wrong content size, bytes after the frame, a second frame and a
+    cut checksum raise FrameError with decompress_frame's message; the
+    good frame still decodes."""
+    bad = C2_CASES[case]
+    with pytest.raises(FrameError) as want:
+        decompress_frame(bad, device="cpu")
+    with pytest.raises(FrameError) as got:
+        PP.decode_frame_sharded(bad, ["cpu"] * 3)
+    assert str(got.value) == str(want.value)
+    assert PP.decode_frame_sharded(C2_FRAME, ["cpu"] * 3) == (
+        decompress_frame(C2_FRAME, device="cpu"))
 
 
 @pytest.mark.parametrize("level", [12, 21])
@@ -237,6 +270,17 @@ def test_global_two_processes_gloo(tmp_path):
 def test_init_process_single_is_noop():
     assert PM.init_process() is False
     assert PM.init_process(num_processes=1) is False
+
+
+def test_entry_batch_equals_graft_entry():
+    """entry()'s example batch is __graft_entry__'s, byte for byte: both
+    are the oracle's streams."""
+    import __graft_entry__
+    _, args = entry.entry("cpu")
+    _, jargs = __graft_entry__.entry()
+    assert len(args) == len(jargs)
+    for a, j in zip(args, jargs):
+        assert np.array_equal(a.numpy(), np.asarray(j))
 
 
 def test_entry_and_dryrun():

@@ -3,7 +3,9 @@ huf_decode and huf_pack against their plain versions on them: Huff0 blobs
 that test the lane split of csrc/huf_decode.cu, blocks that bound the parse
 of csrc/enc_parse.cu, blocks (and tail maps) that bound the match finder of
 csrc/enc_match.cu and the chain walk of csrc/enc_chain.cu, and packing
-plans that bound the split of csrc/huf_encode.cu. The card tests
+plans that bound the split of csrc/huf_encode.cu; the inputs that the
+oracle (ref/block_encode.py) encodes for the card at every level. The card
+tests
 (tests/test_torch_cuda.py), the CPU tests that prove the inputs valid
 (tests/test_torch_huf.py, tests/test_torch_enc_parse.py,
 tests/test_torch_enc_maps.py, tests/test_torch_enc_huf.py) and
@@ -538,3 +540,25 @@ def global_decode_worker(rank: int, world: int, store: str, out: str,
                        "equal": [results[i] == datas[i] for i in own]}, f)
     finally:
         torch.distributed.destroy_process_group()
+
+
+# ------------------------------------- the oracle's inputs at every level
+
+
+def alphabet16(n: int, seed: int, q: float = 0.85) -> bytes:
+    """n bytes of a 16-symbol alphabet, symbol i drawn with weight q**i:
+    literal-heavy, so the oracle's literal stream of a few KB passes the
+    1024-byte Huff0 gate at every level 30-49."""
+    rng = np.random.default_rng(seed)
+    p = q ** np.arange(16)
+    sym = np.frombuffer(b"etaoinshrdlucmfw", np.uint8)
+    return sym[rng.choice(16, n, p=p / p.sum())].tobytes()
+
+
+def is_optimal(level: int) -> bool:
+    """Whether the level's parser is one of the optimal parsers
+    (OPTIMAL_PRICE, OPTIMAL_PRICE_BT: levels 18, 19, 26-29, 39, 46-49), the
+    oracle's slowest."""
+    from lizard_tpu_torch.format.levels import LEVELS, Parser
+    return LEVELS[level].parser in (Parser.OPTIMAL_PRICE,
+                                    Parser.OPTIMAL_PRICE_BT)
