@@ -138,8 +138,29 @@ on the card, and checks every result against the input bytes:
    refusing a wrong content size, trailing bytes and a second frame; the
    oracle's encode time per level (the card machine's CPU) and the phase's
    wall time;
-25. the kernels line (one JSON object per kernel);
-26. the last line: {"ok": true, "device": {...}}.
+25. the incremental layer (streaming.py, frame.FrameEncoder and
+   FrameDecoder, cli.py) on the card: FrameDecoder on a 32 MB linked -21
+   frame of 4 MB frame blocks (frame.linked_frame of a native stream) fed in
+   64 KB updates, each block's chain headed by the window (the history
+   staged reaches 16 MB from the fifth block on), on an independent -41
+   frame (compress_frame_lanes) fed in 1 MB updates and on that frame
+   between skippable frames and before a -10 frame; lz_decode and
+   huf_decode calls counted from 0 for each run against one a (update,
+   frame) pair that completes a compressed block, every output equal to
+   the input and the native decoder, each run timed beside
+   decompress_frame, and the history bytes staged per frame block;
+   DecompressStream on 1 MB of CompressStream's -11 streams (the oracle on
+   the host) in 64 KB calls, decompress_using_dict, decompress_partial;
+   FrameEncoder(backend="gpu") over the corpus at -35 in 64 KB updates,
+   one call of each encoder kernel an update that completes a block,
+   byte-equal to compress_frame_lanes and decoded natively; python -m
+   lizard_tpu_torch.cli -z -41, -d and -t in subprocesses on a 32 MB file
+   (-z's frame equal to compress_frame_lanes', -d's output to the input)
+   and a 1 MB -BD round trip; lz_decode against lz_decode_plain on a
+   history-headed batch (1 MB of history and one 128 KB -21 block whose
+   matches reach into it);
+26. the kernels line (one JSON object per kernel);
+27. the last line: {"ok": true, "device": {...}}.
 
 Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
@@ -205,6 +226,17 @@ ORACLE_FRAME_BYTES = 512 << 10
 ORACLE_LINKED_LEVELS = (10, 21, 41)   # linked, four 128 KB frame blocks
 ORACLE_FRAME_LEVEL = 35        # an independent frame with a content size
 C2_BYTES = 20_000              # the frame the sharded decode must refuse
+INC_BSID = 4                   # phase 25: 4 MB frame blocks
+INC_CHUNK = 64 << 10           # the CLI's read size (cli.IO_CHUNK)
+INC_BIG_CHUNK = 1 << 20
+INC_LINKED_LEVEL = 21
+INC_INDEP_LEVEL = 41
+INC_ENC_LEVEL = 35
+INC_STREAM_BYTES = 1 << 20     # DecompressStream's input, INC_CHUNK a call
+INC_STREAM_LEVEL = 11
+INC_BD_BYTES = 1 << 20         # the CLI's -BD round trip
+INC_HISTORY = 1 << 20          # the history-headed batch against plain
+INC_REPS = 3
 
 
 def emit(phase: str, **kv) -> None:
@@ -1566,6 +1598,258 @@ def oracle_phase(tld, th, runtime, smi: str) -> dict:
     return rec
 
 
+def decode_batches(src: bytes, chunk: int) -> tuple[int, int]:
+    """The decode calls FrameDecoder must make on `src` (frames,
+    skippable ones included) fed `chunk` bytes an update, from the frame
+    layout alone: one a (update, frame) pair in which a compressed block
+    completes. Returns (all of them, those of frames at levels 30-49)."""
+    from lizard_tpu_torch import frame as tframe
+    pairs, huf = set(), set()
+    p = f = 0
+    while p < len(src):
+        magic = int.from_bytes(src[p:p + 4], "little")
+        if magic & 0xFFFFFFF0 == tframe.LIZARDF_MAGIC_SKIPPABLE_START:
+            p += 8 + int.from_bytes(src[p + 4:p + 8], "little")
+            continue
+        info = tframe.parse_frame_header(src[p:])
+        blocks, end = tframe._frame_blocks(src, p + info.header_size)
+        q = p + info.header_size
+        for stored, blob in blocks:
+            q += 4 + len(blob)
+            if not stored:
+                pairs.add(((q - 1) // chunk, f))
+                if blob[0] >= 30:
+                    huf.add(((q - 1) // chunk, f))
+        p, f = end + 4 * info.content_checksum, f + 1
+    return len(pairs), len(huf)
+
+
+def feed_decoder(tframe, src: bytes, chunk: int):
+    """A FrameDecoder on the card fed `src` in `chunk`-byte updates:
+    (the decoder, the joined output, host-clock ms end to end)."""
+    t = time.perf_counter()
+    dec = tframe.FrameDecoder()
+    out = b"".join(dec.update(src[i:i + chunk])
+                   for i in range(0, len(src), chunk))
+    ms = (time.perf_counter() - t) * 1e3
+    if dec.buf or not dec.finished:
+        raise AssertionError("FrameDecoder: the input did not end a frame")
+    return dec, out, ms
+
+
+def incremental_phase(tld, th, te, teh, runtime, corpus: bytes,
+                      smi: str) -> dict:
+    """Phase 25: the incremental layer on the card. FrameDecoder on a
+    linked -INC_LINKED_LEVEL frame of the corpus in 4 MB frame blocks
+    (frame.linked_frame of a native stream) fed INC_CHUNK bytes an update:
+    each block's chain headed by the window (the history staged reaches the
+    16 MB cap from the fifth block on); on an independent -INC_INDEP_LEVEL
+    frame (compress_frame_lanes) fed INC_BIG_CHUNK, then the same
+    concatenated with skippable frames and a -10 frame; lz_decode and
+    huf_decode calls counted from 0 for each run against decode_batches,
+    outputs equal to the input and the native frame decoder, each run timed
+    (median of INC_REPS) beside decompress_frame. DecompressStream on
+    INC_STREAM_BYTES of CompressStream's -INC_STREAM_LEVEL streams (the
+    oracle, host) a chunk a call, decompress_using_dict and
+    decompress_partial. FrameEncoder(backend="gpu") at -INC_ENC_LEVEL over
+    the corpus in INC_CHUNK updates: one call of each encoder kernel per
+    update that completes a block, byte-equal to compress_frame_lanes,
+    decoded natively. The CLI in subprocesses on a file of the corpus (-z
+    -INC_INDEP_LEVEL, -d, -t) and its -BD round trip in this process.
+    lz_decode against lz_decode_plain on a history-headed batch (INC_HISTORY
+    of history and one 128 KB -21 block whose matches reach into it). Emits
+    and returns the record."""
+    import tempfile
+
+    import torch
+    from lizard_tpu_torch import cli
+    from lizard_tpu_torch import frame as tframe
+    from lizard_tpu_torch import streaming
+    from lizard_tpu_torch.errors import CorruptError
+    from lizard_tpu_torch.format.levels import Codewords
+    from lizard_tpu_torch.ops.split import (
+        finalize, inner_block_spans, new_accumulator, split_stored,
+        split_stream)
+    from lizard_tpu_torch.format.constants import LIZARDF_BLOCK_SIZES
+    from lizard_tpu_torch.ref import block_decode
+    t_phase = time.perf_counter()
+    rec = {"launches": {}, "e2e_ms": {}, "card": smi}
+    block = LIZARDF_BLOCK_SIZES[INC_BSID]
+
+    def lanes_frame(data, level):
+        return tframe.compress_frame_lanes(data, level,
+                                           block_size_id=INC_BSID)
+
+    def count_lz():
+        torch.cuda.synchronize()
+        return [th.huf_decode.launches, tld.lz_decode.launches]
+
+    def decoder_run(name, src, chunk, expect):
+        tld.lz_decode.launches = th.huf_decode.launches = 0
+        dec, out, _ = feed_decoder(tframe, src, chunk)
+        n = count_lz()
+        want = list(reversed(decode_batches(src, chunk)))   # [huf, lz]
+        if n != want or len(dec.restaged) != want[1]:
+            raise AssertionError(f"FrameDecoder {name}: calls [huf, lz] {n}"
+                                 f", batches {len(dec.restaged)}, expected "
+                                 f"{want}")
+        if out != expect:
+            raise AssertionError(f"FrameDecoder {name}: output != input")
+        runs = [feed_decoder(tframe, src, chunk)[2] for _ in range(INC_REPS)]
+        rec["launches"][name] = n
+        rec["e2e_ms"][name] = {"frame_decoder": statistics.median(runs),
+                               "runs": runs}
+        return dec
+
+    def one_shot_ms(name, src):
+        runs = []
+        for _ in range(INC_REPS):
+            t = time.perf_counter()
+            tframe.decompress_frame(src)
+            runs.append((time.perf_counter() - t) * 1e3)
+        rec["e2e_ms"][name]["decompress_frame"] = statistics.median(runs)
+    # FrameDecoder on a linked frame in 64 KB updates
+    linked = tframe.linked_frame(runtime.compress(corpus, INC_LINKED_LEVEL),
+                                 corpus, INC_BSID)
+    if runtime.decompress_frame(linked, len(corpus)) != corpus:
+        raise AssertionError("linked frame: native decode != input")
+    dec = decoder_run("linked", linked, INC_CHUNK, corpus)
+    one_shot_ms("linked", linked)
+    want = [min(k * block, 1 << 24)
+            for k in range(len(corpus) // block)]
+    if dec.restaged != want:
+        raise AssertionError(f"linked frame: history staged {dec.restaged}")
+    rec["history_h2d_bytes_per_frame_block"] = dec.restaged
+    # FrameDecoder on an independent frame in 1 MB updates, then a
+    # concatenation with skippable frames
+    indep = lanes_frame(corpus, INC_INDEP_LEVEL)
+    if runtime.decompress_frame(indep, len(corpus)) != corpus:
+        raise AssertionError("independent frame: native decode != input")
+    decoder_run("independent", indep, INC_BIG_CHUNK, corpus)
+    one_shot_ms("independent", indep)
+    skip = (0x184D2A5A).to_bytes(4, "little") + (4096).to_bytes(
+        4, "little") + bytes(4096)
+    small = lanes_frame(corpus[:1 << 20], 10)
+    cat = skip + indep + skip + small
+    decoder_run("concatenated", cat, INC_BIG_CHUNK, corpus + corpus[:1 << 20])
+    # DecompressStream: the oracle's chained streams, a chunk a call
+    data = corpus[:INC_STREAM_BYTES]
+    chunks = [data[i:i + INC_CHUNK] for i in range(0, len(data), INC_CHUNK)]
+    t = time.perf_counter()
+    cs = streaming.CompressStream(INC_STREAM_LEVEL)
+    streams = [cs.compress_continue(c) for c in chunks]
+    host_encode_s = time.perf_counter() - t
+    tld.lz_decode.launches = th.huf_decode.launches = 0
+    t = time.perf_counter()
+    ds = streaming.DecompressStream()
+    got = [ds.decompress_continue(s, len(c)) for s, c in zip(streams, chunks)]
+    stream_ms = (time.perf_counter() - t) * 1e3
+    n = count_lz()
+    if got != chunks or n != [0, len(chunks)]:
+        raise AssertionError(f"DecompressStream: calls [huf, lz] {n}")
+    rec["launches"]["decompress_stream"] = n
+    k = len(chunks) // 2
+    if streaming.decompress_using_dict(streams[k], INC_CHUNK,
+                                       data[:k * INC_CHUNK]) != chunks[k]:
+        raise AssertionError("decompress_using_dict != input")
+    if streaming.decompress_partial(streams[k], 1000, INC_CHUNK,
+                                    data[:k * INC_CHUNK]) != chunks[k][:1000]:
+        raise AssertionError("decompress_partial != input")
+    rec["decompress_stream"] = {
+        "bytes": len(data), "calls": len(chunks), "level": INC_STREAM_LEVEL,
+        "host_encode_s": host_encode_s, "e2e_ms": stream_ms}
+    # FrameEncoder(backend="gpu") over the corpus in 64 KB updates
+    reset_enc_launches(te, teh)
+    t = time.perf_counter()
+    enc = tframe.FrameEncoder(INC_ENC_LEVEL, INC_BSID)
+    fr = bytearray(enc.begin())
+    for i in range(0, len(corpus), INC_CHUNK):
+        fr += enc.update(corpus[i:i + INC_CHUNK])
+    fr += enc.end()
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t) * 1e3
+    got = enc_launches(te, teh)
+    calls = len(corpus) // block
+    cfg = te.cfg_for_level(INC_ENC_LEVEL)
+    if got != (calls, calls if cfg.chain else 0, calls,
+               calls if te.huffman_level(INC_ENC_LEVEL) else 0):
+        raise AssertionError(f"FrameEncoder: encoder kernel calls {got}")
+    rec["launches"]["frame_encoder"] = dict(zip(ENC_WRAPPERS, got))
+    t = time.perf_counter()
+    one_shot = lanes_frame(corpus, INC_ENC_LEVEL)
+    lanes_ms = (time.perf_counter() - t) * 1e3
+    if bytes(fr) != one_shot:
+        raise AssertionError("FrameEncoder != compress_frame_lanes")
+    if runtime.decompress_frame(bytes(fr), len(corpus)) != corpus:
+        raise AssertionError("FrameEncoder: native decode != input")
+    rec["frame_encoder"] = {"level": INC_ENC_LEVEL, "frame_bytes": len(fr),
+                            "e2e_ms": enc_ms, "compress_frame_lanes_ms":
+                            lanes_ms}
+    # the CLI: -z, -d and -t in subprocesses on a file of the corpus, and
+    # a -BD round trip here
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, liz, back = (os.path.join(tmp, n) for n in
+                          ("corpus.bin", "corpus.liz", "corpus.out"))
+        with open(src, "wb") as f:
+            f.write(corpus)
+        cli_s = {}
+        for name, args in (("z", ["-z", f"-{INC_INDEP_LEVEL}",
+                                  f"-B{INC_BSID}", src, liz]),
+                           ("d", ["-d", liz, back]), ("t", ["-t", liz])):
+            t = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "lizard_tpu_torch.cli",
+                            "-f", "-q", *args], cwd=here, check=True,
+                           timeout=300)
+            cli_s[name] = time.perf_counter() - t
+        with open(liz, "rb") as f:
+            if f.read() != indep:
+                raise AssertionError("cli -z != compress_frame_lanes")
+        with open(back, "rb") as f:
+            if f.read() != corpus:
+                raise AssertionError("cli -d != input")
+        with open(src, "wb") as f:
+            f.write(corpus[:INC_BD_BYTES])
+        t = time.perf_counter()
+        cli.main(["-z", "-BD", "-B1", "-f", "-q", src, liz])
+        cli_s["BD_z"] = time.perf_counter() - t
+        with open(liz, "rb") as f:
+            if tframe.parse_frame_header(f.read(15)).block_linked is not True:
+                raise AssertionError("cli -BD: not a linked frame")
+        tld.lz_decode.launches = th.huf_decode.launches = 0
+        t = time.perf_counter()
+        cli.main(["-d", "-f", "-q", liz, back])
+        cli_s["BD_d"] = time.perf_counter() - t
+        rec["launches"]["cli_linked"] = count_lz()
+        with open(back, "rb") as f:
+            if f.read() != corpus[:INC_BD_BYTES]:
+                raise AssertionError("cli -BD round trip != input")
+    rec["cli_s"] = cli_s
+    # lz_decode against plain on a history-headed batch: the last inner
+    # block of a -21 stream of INC_HISTORY + 128 KB, headed by the history
+    s = runtime.compress(corpus[:INC_HISTORY + BLOCK], 21)
+    a, b = inner_block_spans(s)[-1]
+    tail = s[:1] + s[a:b]
+    try:
+        block_decode.decompress(tail)
+        raise AssertionError("history batch: no match reaches the history")
+    except CorruptError:
+        pass
+    acc = new_accumulator()
+    split_stored(corpus[:INC_HISTORY], acc, 0)
+    split_stream(tail, acc, 0)
+    args = tld.stage_batch(finalize(acc, Codewords.LIZv1), "cuda")
+    rec["history_vs_plain"] = hold_against_plain(
+        tld, args, "history-headed batch, -21")
+    got = tframe.decode_blocks([(False, tail)], True, "cuda",
+                               history=corpus[:INC_HISTORY])
+    if got != [corpus[INC_HISTORY:INC_HISTORY + BLOCK]]:
+        raise AssertionError("history-headed decode != input")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit("incremental", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2064,7 +2348,20 @@ def main() -> int:
     huf_err = max(huf_err, oc["max_abs_err"]["huf"])
     oracle_paths = {f"oracle_{k}": v for k, v in oc["launches"].items()}
 
-    # 25. kernels line: launches summed over every path's run, counted
+    # 25. the incremental layer on the card: FrameDecoder, DecompressStream,
+    # FrameEncoder(backend="gpu"), the CLI
+    inc = incremental_phase(tld, th, te, teh, runtime, corpus, smi)
+    max_err = max(max_err, inc["history_vs_plain"]["max_abs_err"])
+    il = inc["launches"]
+    inc_paths = {"frame_decoder": [sum(il[k][i] for k in (
+                     "linked", "independent", "concatenated"))
+                     for i in (0, 1)],
+                 "decompress_stream": il["decompress_stream"],
+                 "cli_linked": il["cli_linked"]}
+    for w in ENC_WRAPPERS:
+        enc_paths[w]["frame_encoder"] = il["frame_encoder"][w]
+
+    # 26. kernels line: launches summed over every path's run, counted
     # from 0 just before it and read just after
     lz_paths = {"decompress_lanes": main_launches,
                 "sweep": sweep_launches[1],
@@ -2078,7 +2375,8 @@ def main() -> int:
                     n["lz_decode"] for r in sl.values()
                     for n in r["launches"].values()),
                 "dryrun_multichip": ep["launches"]["lz_decode"],
-                **{k: v[1] for k, v in oracle_paths.items()}}
+                **{k: v[1] for k, v in oracle_paths.items()},
+                **{k: v[1] for k, v in inc_paths.items()}}
     lz_kernel_paths = {
         "decompress_lanes": main_kernel_launches,
         "decode_batch_pallas": sum(r["kernel_launches"] for r in pb.values()),
@@ -2094,7 +2392,8 @@ def main() -> int:
                      n["huf_decode"] for r in sl.values()
                      for n in r["launches"].values()),
                  "dryrun_multichip": ep["launches"]["huf_decode"],
-                 **{k: v[0] for k, v in oracle_paths.items()}}
+                 **{k: v[0] for k, v in oracle_paths.items()},
+                 **{k: v[0] for k, v in inc_paths.items()}}
     t10 = timing[MAIN_LEVELS[0]]
     h41 = huf_timing[HUF_LEVELS[-1]]
     print(json.dumps({"kernels": [{
@@ -2184,7 +2483,7 @@ def main() -> int:
                         enc_paths[k[1]])
           for k in ENC_KERNELS]}), flush=True)
 
-    # 26. last line
+    # 27. last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -53,7 +53,19 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
                             compress_frame_lanes, compress_frame_tpu,
                             decompress(backend="gpu", "xla" or "ref"),
                             decompress_frame and decompress_frames:
-                            linked, independent and skippable frames)
+                            linked, independent and skippable frames), and
+                            the incremental FrameEncoder (backend="gpu",
+                            "native" or "ref") and FrameDecoder (input in
+                            pieces, decoded on the card an update at a time)
+- ``streaming``          -- CompressStream (the oracle's streaming encoder,
+                            host), DecompressStream, decompress_using_dict
+                            and decompress_partial (on the card: each stream
+                            one chain headed by the history or dictionary)
+- ``cli``                -- the `lizard` command line
+                            (python -m lizard_tpu_torch.cli; 64 KB loop,
+                            LIZARD_TPU_BACKEND=gpu, native or ref)
+- ``tools``              -- datagen_cli and fullbench
+                            (python -m lizard_tpu_torch.tools.<name>)
 
 Every entry point runs on the card unless the caller passes device="cpu";
 the oracle runs on the host, reached only through backend="ref" or its own
@@ -76,6 +88,8 @@ from lizard_tpu_torch.api import (  # noqa: F401
     decompress_frame,
 )
 from lizard_tpu_torch.frame import (  # noqa: F401
+    FrameDecoder,
+    FrameEncoder,
     compress_frame_lanes,
     compress_frame_tpu,
     decompress_frame_lanes,
@@ -88,6 +102,12 @@ from lizard_tpu_torch.ops.enc_lanes import (  # noqa: F401
 )
 from lizard_tpu_torch.parallel.multihost import (  # noqa: F401
     decode_streams_global,
+)
+from lizard_tpu_torch.streaming import (  # noqa: F401
+    CompressStream,
+    DecompressStream,
+    decompress_partial,
+    decompress_using_dict,
 )
 from lizard_tpu_torch.parallel.pipeline import (  # noqa: F401
     decode_frame_sharded,

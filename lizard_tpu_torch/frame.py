@@ -22,11 +22,20 @@ compresses every frame block on the card with the device encoder
 `compress_frame_tpu` is the JAX function of that name, its engine="xla"
 the plain-PyTorch all-XLA encoder (ops/encode_tpu.py). Every decoder ends
 with `frame_end` and `whole_frame`, the checks after the endmark.
+
+`FrameEncoder` and `FrameDecoder` are the incremental layer
+(LizardF_compressBegin/Update/Flush/End and LizardF_decompress): input of
+any granularity in, bytes out as whole blocks complete, in bounded memory.
+The encoder compresses an update's whole blocks in one batch on the card
+(or with the native encoder or the oracle); the decoder decodes an update's
+completed blocks of a frame in one batch on the card (decode_blocks), a
+linked frame's chain headed by the 16 MB window it keeps.
 """
 
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import (
+    LIZARD_DICT_SIZE,
     LIZARDF_BLOCK_SIZES,
     LIZARDF_BLOCKUNCOMPRESSED_FLAG,
     LIZARDF_MAGIC,
@@ -42,8 +51,9 @@ from lizard_tpu_torch.ops.lane_decode import (
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
 from lizard_tpu_torch.ops.split import (
     finalize, inner_block_spans, new_accumulator, split_stored, split_stream)
+from lizard_tpu_torch.ref import block_decode
 from lizard_tpu_torch.ref.block_encode import DICT, Ctx, Tables, compress_range
-from lizard_tpu_torch.runtime import xxh32
+from lizard_tpu_torch.runtime import XXH32, xxh32
 
 
 class FrameError(ValueError):
@@ -159,6 +169,36 @@ def compress_frame_fast(data: bytes, level: int = 11,
                   parts, data, content_checksum)
 
 
+def _descriptor(block_size_id, linked, content_checksum,
+                content_size=None) -> bytes:
+    """FLG, BD and, when content_size is an int, the content size: a frame
+    header without its magic and its header checksum."""
+    flg = (1 << 6) | ((0 if linked else 1) << 5) \
+        | (int(content_checksum) << 2) | ((content_size is not None) << 3)
+    header = bytearray([flg, (block_size_id & 7) << 4])
+    if content_size is not None:
+        header += content_size.to_bytes(8, "little")
+    return bytes(header)
+
+
+def _frame_start(header: bytes) -> bytearray:
+    """The magic, the descriptor `header` and its header checksum byte."""
+    out = bytearray(LIZARDF_MAGIC.to_bytes(4, "little"))
+    out += header
+    out.append((xxh32(header) >> 8) & 0xFF)
+    return out
+
+
+def _block(part: bytes, comp: bytes) -> bytes:
+    """The frame block of `part` whose compressed stream is `comp`: its
+    size and `comp`, or `part` stored when `comp` is not at least one byte
+    shorter (LizardF_compressBlock, lizard_frame.c:456-469)."""
+    if len(comp) >= len(part):
+        return (len(part) | LIZARDF_BLOCKUNCOMPRESSED_FLAG).to_bytes(
+            4, "little") + part
+    return len(comp).to_bytes(4, "little") + comp
+
+
 def _header(level, block_size_id, size, content_checksum, content_size,
             block_linked=False):
     """(level, block size, header bytes without the magic and the header
@@ -169,27 +209,17 @@ def _header(level, block_size_id, size, content_checksum, content_size,
         block_size_id = 1  # LIZARDF_BLOCKSIZEID_DEFAULT (lizard_frame.c:120)
     block_size_id = _optimal_bsid(block_size_id, size)
     linked = block_linked and size > LIZARDF_BLOCK_SIZES[block_size_id]
-    flg = (1 << 6) | ((0 if linked else 1) << 5) \
-        | (int(content_checksum) << 2) | ((1 if content_size else 0) << 3)
-    header = bytearray([flg, (block_size_id & 7) << 4])
-    if content_size:
-        header += size.to_bytes(8, "little")
-    return level, LIZARDF_BLOCK_SIZES[block_size_id], bytes(header)
+    header = _descriptor(block_size_id, linked, content_checksum,
+                         size if content_size else None)
+    return level, LIZARDF_BLOCK_SIZES[block_size_id], header
 
 
 def _frame(header, comps, parts, data, content_checksum) -> bytes:
     """The frame of the compressed blocks `comps` of `parts`: a block that
     does not shrink is stored."""
-    out = bytearray(LIZARDF_MAGIC.to_bytes(4, "little"))
-    out += header
-    out.append((xxh32(header) >> 8) & 0xFF)
+    out = _frame_start(header)
     for part, comp in zip(parts, comps):
-        if len(comp) >= len(part):
-            out += (len(part) | LIZARDF_BLOCKUNCOMPRESSED_FLAG).to_bytes(4, "little")
-            out += part
-        else:
-            out += len(comp).to_bytes(4, "little")
-            out += comp
+        out += _block(part, comp)
     out += (0).to_bytes(4, "little")
     if content_checksum:
         out += xxh32(data).to_bytes(4, "little")
@@ -288,9 +318,7 @@ def linked_frame(stream: bytes, data: bytes, block_size_id: int = 4) -> bytes:
     as the stream's did."""
     per = LIZARDF_BLOCK_SIZES[block_size_id] // LIZARD_BLOCK_SIZE
     spans = inner_block_spans(stream)
-    header = bytes([1 << 6 | 1 << 2, block_size_id << 4])
-    out = bytearray(LIZARDF_MAGIC.to_bytes(4, "little") + header)
-    out.append((xxh32(header) >> 8) & 0xFF)
+    out = _frame_start(_descriptor(block_size_id, True, True))
     for k in range(0, len(spans), per):
         last = spans[min(k + per, len(spans)) - 1]
         part = stream[0:1] + stream[spans[k][0]:last[1]]
@@ -404,19 +432,29 @@ def _frame_blocks(src: bytes, p: int) -> tuple[list[tuple[bool, bytes]], int]:
         p += bsize
 
 
-def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
-                         entropy: str) -> bytes:
-    """Every frame block in one batch: a linked frame is one chain (stream
-    id 0; a stored block is literal-only inner blocks of it), else each
-    frame block is its own chain. One lz_decode launch, after one
-    huf_decode launch at levels 30-49 on entropy="gpu"."""
+def decode_blocks(blocks, linked: bool, dev, entropy: str = "gpu",
+                  max_out: int | None = None,
+                  history: bytes = b"") -> list[bytes]:
+    """The decoded bytes of each (stored, payload) frame block, all in one
+    batch on `dev`: a linked frame is one chain (stream id 0; a stored
+    block is literal-only inner blocks of it), else each frame block is
+    its own chain. A linked chain may be headed by `history`, the bytes
+    decoded before these blocks, which their matches may reach: it is
+    staged as literal-only inner blocks (split.split_stored) and not copied
+    back. One lz_decode launch, after one huf_decode launch at levels 30-49
+    on entropy="gpu". Raises CorruptError for a corrupt block, or one whose
+    output exceeds max_out."""
     if entropy not in ("gpu", "host"):
         raise ValueError(f"unknown entropy route {entropy!r}")
+    if history and not linked:
+        raise ValueError("a history heads a linked chain only")
+    head = [(True, history)] if history else []
+    skip = -(-len(history) // LIZARD_BLOCK_SIZE)    # the history's blocks
     spans = []                  # (first inner block, end, stored)
 
     def split(acc, hd):
         family = None
-        for i, (stored, blob) in enumerate(blocks):
+        for i, (stored, blob) in enumerate(head + list(blocks)):
             first = len(acc["stream_id"])
             sid = 0 if linked else i
             if stored:
@@ -426,23 +464,31 @@ def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
                 family = family or f
             spans.append((first, len(acc["stream_id"]), stored))
         return family or Codewords.LZ4
+    if entropy == "gpu":
+        batch, plan = plan_split(split)
+        decoded = decode_fused(batch, plan, dev, first=skip)
+    else:
+        acc = new_accumulator()
+        batch = finalize(acc, split(acc, None))
+        decoded = decode_batch_lanes(batch, device=dev, first=skip)
+    parts = []
+    for first, end, stored in spans[len(head):]:
+        part = b"".join(decoded[first - skip:end - skip])
+        if not stored and max_out is not None and len(part) > max_out:
+            raise CorruptError("output exceeds max_out")
+        parts.append(part)
+    return parts
+
+
+def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
+                         entropy: str) -> bytes:
+    """Every frame block of a frame in one batch (decode_blocks), joined;
+    a corrupt block raises FrameError."""
     try:
-        if entropy == "gpu":
-            batch, plan = plan_split(split)
-            decoded = decode_fused(batch, plan, dev)
-        else:
-            acc = new_accumulator()
-            batch = finalize(acc, split(acc, None))
-            decoded = decode_batch_lanes(batch, device=dev)
+        return b"".join(decode_blocks(blocks, linked, dev, entropy,
+                                      max_block))
     except CorruptError as e:
         raise FrameError(f"block decode failed: {e}") from e
-    out = bytearray()
-    for first, end, stored in spans:
-        part = b"".join(decoded[first:end])
-        if not stored and len(part) > max_block:
-            raise FrameError("block decode failed: output exceeds max_out")
-        out += part
-    return bytes(out)
 
 
 def decompress_one_frame(src: bytes, verify_checksum: bool = True,
@@ -490,3 +536,318 @@ def decompress_frames(src: bytes, verify_checksum: bool = True, device=None,
         out += data
         p += n
     return bytes(out)
+
+
+class FrameEncoder:
+    """Incremental frame compression: LizardF_compressBegin / Update /
+    Flush / End (lizard_frame.c:501-629), the port of
+    lizard_tpu/frame.py::FrameEncoder with its state machine and messages.
+    Input of any granularity buffers (the reference's tmpIn) until a whole
+    frame block accumulates or flush() forces a partial one out; memory
+    stays O(window + block).
+
+    backend="gpu" (the default, as in api.compress_frame): every whole block
+    an update() completes is compressed in one encode_streams_lanes call on
+    `device` (the card unless device="cpu"), so the
+    frame equals compress_frame_lanes' with the same level, block size,
+    checksum and content size; blockIndependent only (block_linked=True
+    raises ValueError). backend="native" (the C++ encoder, a block a call)
+    and backend="ref" (the oracle) are the JAX ones, byte for byte: linked
+    frames go through streaming.CompressStream, and independent ref frames
+    equal compress_frame's with the same prefs."""
+
+    def __init__(self, level: int = 17, block_size_id: int = 0,
+                 block_linked: bool = False, content_checksum: bool = True,
+                 content_size: int | None = None, backend: str = "gpu",
+                 device=None):
+        if backend not in ("gpu", "native", "ref"):
+            raise ValueError(
+                f"backend {backend!r}: use 'gpu', 'native' or 'ref'")
+        if backend == "gpu" and block_linked:
+            raise ValueError("backend='gpu' makes independent blocks only; "
+                             "block_linked=True needs backend='ref' or "
+                             "'native'")
+        self.level = validate_level(level)
+        self.params = LEVELS[self.level]
+        if block_size_id == 0:
+            block_size_id = 1  # LIZARDF_BLOCKSIZEID_DEFAULT
+        self.block_size_id = block_size_id
+        self.block_size = LIZARDF_BLOCK_SIZES[block_size_id]
+        self.block_linked = block_linked
+        self.content_checksum = content_checksum
+        self.content_size = content_size
+        self.backend = backend
+        self.device = resolve_device(device) if backend == "gpu" else None
+        self.tmp = bytearray()      # partial-block buffer (tmpIn)
+        self.total_in = 0
+        self.xxh = XXH32(0) if content_checksum else None
+        self._begun = False
+        self._ended = False
+        if block_linked:
+            # streaming builds on this module, so it is imported here
+            from lizard_tpu_torch.streaming import CompressStream
+            self._cs = CompressStream(self.level)
+        else:
+            self._tables = Tables(self.params)
+
+    def begin(self) -> bytes:
+        """Frame header bytes (LizardF_compressBegin)."""
+        assert not self._begun
+        self._begun = True
+        return bytes(_frame_start(_descriptor(
+            self.block_size_id, self.block_linked, self.content_checksum,
+            self.content_size)))
+
+    def _compress(self, part: bytes) -> bytes:
+        """One block's compressed stream on the host backends."""
+        if self.block_linked:
+            return self._cs.compress_continue(part)
+        if self.backend == "native":
+            return runtime.compress(part, self.level)
+        # extState per block: fresh ctx/window, tables NOT cleared
+        ctx = Ctx(self.level, self.params)
+        self._tables.next_to_update = DICT  # Lizard_init
+        return compress_range(ctx, self._tables, part, 0, len(part))
+
+    def _emit_blocks(self, parts: list[bytes]) -> bytes:
+        if self.backend == "gpu":
+            comps = encode_streams_lanes(parts, level=self.level,
+                                         device=self.device)
+        else:
+            comps = [self._compress(p) for p in parts]
+        return b"".join(_block(p, c) for p, c in zip(parts, comps))
+
+    def update(self, chunk: bytes) -> bytes:
+        """Feed input; returns any compressed bytes produced
+        (LizardF_compressUpdate: only whole blocks are emitted)."""
+        if not self._begun or self._ended:
+            raise FrameError("update outside begin/end")
+        self.total_in += len(chunk)
+        if self.xxh is not None:
+            self.xxh.update(chunk)
+        self.tmp += chunk
+        whole = len(self.tmp) - len(self.tmp) % self.block_size
+        if not whole:
+            return b""
+        parts = [bytes(self.tmp[i:i + self.block_size])
+                 for i in range(0, whole, self.block_size)]
+        del self.tmp[:whole]
+        return self._emit_blocks(parts)
+
+    def flush(self) -> bytes:
+        """Force the buffered partial block out (LizardF_flush)."""
+        if not self.tmp:
+            return b""
+        part = bytes(self.tmp)
+        self.tmp.clear()
+        return self._emit_blocks([part])
+
+    def end(self) -> bytes:
+        """Flush + endmark + optional content checksum (LizardF_compressEnd).
+        Raises FrameError if a declared content_size was not matched."""
+        if self._ended:
+            raise FrameError("end called twice")
+        out = bytearray(self.flush())
+        self._ended = True
+        if (self.content_size is not None
+                and self.total_in != self.content_size):
+            raise FrameError(
+                f"content size mismatch: declared {self.content_size}, "
+                f"got {self.total_in}")
+        out += (0).to_bytes(4, "little")
+        if self.content_checksum:
+            out += self.xxh.digest().to_bytes(4, "little")
+        return bytes(out)
+
+
+class FrameDecoder:
+    """Incremental frame decoder: accepts input chunks of any size and
+    returns output as it becomes available, like LizardF_decompress's
+    resumable dStage machine (lizard_frame.c:713-722,980-1319); the port of
+    lizard_tpu/frame.py::FrameDecoder, with its state machine, its fields
+    (buf, out, emitted, trimmed, finished, info) and its messages, and the
+    same bytes from each update().
+
+    backend="gpu" (the default) decodes on `device` (the card unless
+    device="cpu"): the blocks of one
+    frame that an update() completes are decoded together when the update
+    ends or the frame does (decode_blocks): one lz_decode call, after at
+    most one huf_decode call at levels 30-49, and none when no compressed
+    block completed. A linked frame's chain is headed by the window kept in
+    `out` (the frame's output from max(its start, the end less
+    LIZARD_DICT_SIZE)), staged as a stored block; `restaged` lists the
+    history bytes staged for each such call (0 for an independent frame).
+    backend="ref" decodes each block with the oracle as it completes, as
+    the JAX one does. A corrupt block raises CorruptError; the checksum and
+    the content size FrameError."""
+
+    def __init__(self, verify_checksum: bool = True, device=None,
+                 backend: str = "gpu"):
+        if backend not in ("gpu", "ref"):
+            raise ValueError(f"backend {backend!r}: use 'gpu' or 'ref'")
+        self.buf = bytearray()
+        self.out = bytearray()
+        self.emitted = 0          # index into self.out
+        self.trimmed = 0          # bytes dropped from the front of self.out
+        self.verify = verify_checksum
+        self.state = "header"
+        self.info = None
+        self.xxh = XXH32(0)
+        self.skip_left = 0
+        self.finished = False
+        self._frame_produced = 0
+        self.backend = backend
+        self.device = resolve_device(device) if backend == "gpu" else None
+        self._pending = []        # this frame's blocks not decoded yet
+        self.restaged = []
+
+    def update(self, chunk: bytes) -> bytes:
+        """Feed a chunk; returns newly decoded bytes. Memory stays bounded
+        for arbitrarily long frames (lizardio.c:647-698's 64 KB loop relies
+        on this): emitted output is dropped, keeping only the linked-mode
+        window (<= LIZARD_DICT_SIZE) when one is needed."""
+        self.buf += chunk
+        progress = True
+        while progress:
+            progress = self._step()
+        self._decode_pending()
+        new = bytes(self.out[self.emitted:])
+        self.emitted = len(self.out)
+        self._trim()
+        return new
+
+    def _trim(self) -> None:
+        logical_len = self.trimmed + len(self.out)
+        if (self.info is not None and self.info.block_linked
+                and not self.finished):
+            keep_from = max(self._frame_out_start,
+                            logical_len - LIZARD_DICT_SIZE)
+        else:
+            keep_from = logical_len
+        cut = min(keep_from, self.trimmed + self.emitted)
+        drop = cut - self.trimmed
+        if drop > 0:
+            del self.out[:drop]
+            self.trimmed = cut
+            self.emitted -= drop
+
+    def _produced(self, part) -> None:
+        self._frame_produced += len(part)
+        if self.info.content_checksum:
+            self.xxh.update(part)
+
+    def _decode_pending(self) -> None:
+        """Decode the frame blocks gathered since the last call, in order,
+        onto `out`."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        linked = self.info.block_linked
+        max_block = LIZARDF_BLOCK_SIZES[self.info.block_size_id]
+        frame_base = max(self._frame_out_start - self.trimmed, 0)
+        if self.backend == "ref":
+            for stored, blob in pending:
+                prefix = len(self.out)
+                if stored:
+                    self.out += blob
+                else:
+                    block_decode.decompress(
+                        blob, max_out=max_block, out=self.out,
+                        window_base=frame_base if linked else prefix)
+                self._produced(self.out[prefix:])
+            return
+        if all(stored for stored, _ in pending):
+            parts = [blob for _, blob in pending]
+        else:
+            history = b""
+            if linked:
+                keep = max(frame_base, len(self.out) - LIZARD_DICT_SIZE)
+                history = bytes(self.out[keep:])
+            parts = decode_blocks(pending, linked, self.device,
+                                  max_out=max_block, history=history)
+            self.restaged.append(len(history))
+        for part in parts:
+            self.out += part
+            self._produced(part)
+
+    def _step(self) -> bool:
+        buf = self.buf
+        if self.state == "header":
+            if len(buf) < 4:
+                return False
+            magic = int.from_bytes(buf[0:4], "little")
+            if (magic & 0xFFFFFFF0) == LIZARDF_MAGIC_SKIPPABLE_START:
+                if len(buf) < 8:
+                    return False
+                self.finished = False  # a new frame begins
+                self.skip_left = int.from_bytes(buf[4:8], "little")
+                del buf[:8]
+                self.state = "skip"
+                return True
+            # need full descriptor; max 15 bytes
+            if len(buf) < 7:
+                return False
+            has_size = bool((buf[4] >> 3) & 1)
+            need = 15 if has_size else 7
+            if len(buf) < need:
+                return False
+            self.info = parse_frame_header(bytes(buf[:need]))
+            self.finished = False  # a new frame begins
+            del buf[:self.info.header_size]
+            self.xxh = XXH32(0)
+            self._frame_out_start = self.trimmed + len(self.out)
+            self._frame_produced = 0
+            self.state = "blocksize"
+            return True
+        if self.state == "skip":
+            n = min(self.skip_left, len(buf))
+            del buf[:n]
+            self.skip_left -= n
+            if self.skip_left == 0:
+                self.state = "header"
+                self.finished = True
+                return True
+            return False
+        if self.state == "blocksize":
+            if len(buf) < 4:
+                return False
+            bsize = int.from_bytes(buf[0:4], "little")
+            if bsize == 0:
+                del buf[:4]
+                self._decode_pending()       # the frame closes its batch
+                self.state = "suffix" if self.info.content_checksum else "header"
+                if self.state == "header":
+                    self._check_content_size()
+                    self.finished = True
+                return True
+            self._bsize = bsize & ~LIZARDF_BLOCKUNCOMPRESSED_FLAG
+            self._stored = bool(bsize & LIZARDF_BLOCKUNCOMPRESSED_FLAG)
+            del buf[:4]
+            self.state = "block"
+            return True
+        if self.state == "block":
+            if len(buf) < self._bsize:
+                return False
+            self._pending.append((self._stored, bytes(buf[:self._bsize])))
+            del buf[:self._bsize]
+            if self.backend == "ref":
+                self._decode_pending()
+            self.state = "blocksize"
+            return True
+        if self.state == "suffix":
+            if len(buf) < 4:
+                return False
+            stored_crc = int.from_bytes(buf[0:4], "little")
+            del buf[:4]
+            if self.verify and self.xxh.digest() != stored_crc:
+                raise FrameError("content checksum mismatch")
+            self._check_content_size()
+            self.state = "header"
+            self.finished = True
+            return True
+        return False
+
+    def _check_content_size(self):
+        if self.info and self.info.content_size is not None:
+            if self._frame_produced != self.info.content_size:
+                raise FrameError("content size mismatch")

@@ -74,10 +74,12 @@ def decompress_lanes_fused(streams: list[bytes], device=None) -> list[bytes]:
                         len(streams))
 
 
-def decode_fused(batch: BlockBatch, plan: HufPlan, device=None) -> list[bytes]:
-    """The decoded bytes of every block of a planned batch (plan_split),
-    in batch order: huf_decode (when the plan has segments) then lz_decode
-    on one stream of `device`, and one copy back."""
+def decode_fused(batch: BlockBatch, plan: HufPlan, device=None,
+                 first: int = 0) -> list[bytes]:
+    """The decoded bytes of the blocks from index `first` on of a planned
+    batch (plan_split), in batch order: huf_decode (when the plan has
+    segments) then lz_decode on one stream of `device`, and one copy back
+    (lane_decode.read_blocks)."""
     dev = resolve_device(device)
     args = stage_batch(batch, dev)
     huf_status = None
@@ -87,4 +89,4 @@ def decode_fused(batch: BlockBatch, plan: HufPlan, device=None) -> list[bytes]:
     result = lz_decode(**args)
     if huf_status is not None:
         raise_on_status(huf_status, plan)
-    return read_blocks(batch, args, *result)
+    return read_blocks(batch, args, *result, first=first)

@@ -414,29 +414,37 @@ def raise_on_status(batch: BlockBatch, chains, status) -> None:
 
 
 def read_blocks(batch: BlockBatch, args: dict, out, block_len,
-                status) -> list[bytes]:
-    """The decoded bytes of every block of an lz_decode result (one copy
-    back to the host), in batch order. Raises CorruptError on a corrupt
-    chain. `args` is the staged batch the result came from."""
+                status, first: int = 0) -> list[bytes]:
+    """The decoded bytes of the blocks from index `first` on of an
+    lz_decode result, in batch order: one copy back to the host, of the
+    span of `out` those blocks cover (blocks before `first`, such as a
+    history that heads a chain, are not copied). Raises CorruptError on a
+    corrupt chain. `args` is the staged batch the result came from."""
     chains = args["chains"].cpu()
     raise_on_status(batch, chains, status)
     lens = block_len.cpu().tolist()
-    data = out.cpu().numpy()
-    blocks = []
-    for first, count, base in chains.tolist():
+    spans = []                                  # (output position, length)
+    for c0, count, base in chains.tolist():
         pos = base
-        for b in range(first, first + count):
-            blocks.append(data[pos:pos + lens[b]].tobytes())
+        for b in range(c0, c0 + count):
+            if b >= first:
+                spans.append((pos, lens[b]))
             pos += lens[b]
-    return blocks
+    if not spans:
+        return []
+    lo, hi = spans[0][0], max(p + n for p, n in spans)
+    data = out[lo:hi].cpu().numpy()
+    return [data[p - lo:p - lo + n].tobytes() for p, n in spans]
 
 
-def decode_batch_lanes(batch: BlockBatch, device=None) -> list[bytes]:
+def decode_batch_lanes(batch: BlockBatch, device=None,
+                       first: int = 0) -> list[bytes]:
     """Decode a BlockBatch (fastLZ4 or LIZv1 codewords) on `device` (the
-    card unless device="cpu"). Returns the decoded bytes of every block,
-    in batch order. Raises CorruptError on a corrupt chain."""
+    card unless device="cpu"). Returns the decoded bytes of every block
+    from index `first` on, in batch order (read_blocks). Raises
+    CorruptError on a corrupt chain."""
     args = stage_batch(batch, resolve_device(device))
-    return read_blocks(batch, args, *lz_decode(**args))
+    return read_blocks(batch, args, *lz_decode(**args), first=first)
 
 
 def join_streams(batch: BlockBatch, blocks: list[bytes],

@@ -184,25 +184,34 @@ def split_stream(src: bytes, batch: dict, stream_id: int,
     return family
 
 
+def inner_block_end(src: bytes, ip: int) -> int:
+    """The end in `src` of the inner block whose header byte is at `ip`,
+    from the headers alone; raises CorruptError when it lies past the end
+    of `src`."""
+    n = len(src)
+    header = src[ip]
+    ip += 1
+    if header == FLAG_UNCOMPRESSED:
+        ip += 3 + (_le24(src, ip) if ip + 3 <= n else 0)
+    else:
+        for bit in (0, FLAG_OFFSET16, FLAG_OFFSET24, FLAG_FLAGS,
+                    FLAG_LITERALS):
+            if ip + (6 if header & bit else 3) > n:
+                raise CorruptError("stream header truncated")
+            ip += (6 + _le24(src, ip + 3) if header & bit
+                   else 3 + _le24(src, ip))
+    if ip > n:
+        raise CorruptError("inner block truncated")
+    return ip
+
+
 def inner_block_spans(src: bytes) -> list[tuple[int, int]]:
     """The byte span (start, end) in `src` of every inner block of one
     compressed stream (after its level byte), from the headers alone."""
-    spans, ip, n = [], 1, len(src)
-    while ip < n:
-        start, header = ip, src[ip]
-        ip += 1
-        if header == FLAG_UNCOMPRESSED:
-            ip += 3 + (_le24(src, ip) if ip + 3 <= n else 0)
-        else:
-            for bit in (0, FLAG_OFFSET16, FLAG_OFFSET24, FLAG_FLAGS,
-                        FLAG_LITERALS):
-                if ip + (6 if header & bit else 3) > n:
-                    raise CorruptError("stream header truncated")
-                ip += (6 + _le24(src, ip + 3) if header & bit
-                       else 3 + _le24(src, ip))
-        if ip > n:
-            raise CorruptError("inner block truncated")
-        spans.append((start, ip))
+    spans, ip = [], 1
+    while ip < len(src):
+        spans.append((ip, inner_block_end(src, ip)))
+        ip = spans[-1][1]
     return spans
 
 

@@ -15,10 +15,16 @@ processes may start at once (test workers), and none loads a half-written
 library. There is no pure-Python fallback:
 without the library every call raises RuntimeError, and `available()`
 returns False.
+
+`XXH32` is the port's own host code: a streaming xxh32 over chunks
+(csrc/xxh32_stream.cpp, built the same way with g++ into
+build/lizard_tpu_torch/, under that directory's lock), for the incremental
+frame layer, whose checksums see the content a piece at a time.
 """
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import subprocess
 
@@ -33,28 +39,29 @@ _SRC = os.path.join(_ROOT, "native", "lizard_runtime.cpp")
 _lib = None
 
 
-def _build_and_open() -> ctypes.CDLL:
-    """Open the library, building it first if it is missing or does not
-    load; the build writes a temporary file and renames it onto _SO, all
-    under the directory's lock."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
+def _build_and_open(src: str = _SRC, so: str = _SO) -> ctypes.CDLL:
+    """Open the library `so`, building it from `src` first if it is missing
+    or does not load; the build writes a temporary file and renames it onto
+    `so`, all under the lock of its directory."""
+    build_dir = os.path.dirname(so)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(_SO):
+        if os.path.exists(so):
             try:
-                return ctypes.CDLL(_SO)
+                return ctypes.CDLL(so)
             except OSError:
                 pass            # a partial file: build it anew
-        tmp = f"{_SO}.{os.getpid()}.tmp"
+        tmp = f"{so}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-Wall",
-               "-o", tmp, _SRC]
+               "-o", tmp, src]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(
-                f"building the native runtime failed ({' '.join(cmd)}):\n"
+                f"building {os.path.basename(so)} failed ({' '.join(cmd)}):\n"
                 f"{r.stdout}{r.stderr}")
-        os.replace(tmp, _SO)
-        return ctypes.CDLL(_SO)
+        os.replace(tmp, so)
+        return ctypes.CDLL(so)
 
 
 def _load() -> ctypes.CDLL:
@@ -120,6 +127,49 @@ def xxh32(data: bytes, seed: int = 0) -> int:
 
 def xxh64(data: bytes, seed: int = 0) -> int:
     return _load().ltpu_xxh64(data, len(data), seed)
+
+
+_STREAM_SRC = os.path.join(_ROOT, "lizard_tpu_torch", "csrc",
+                           "xxh32_stream.cpp")
+_stream_lib = None
+
+
+def _load_stream() -> ctypes.CDLL:
+    """The library of csrc/xxh32_stream.cpp, built first if missing; its
+    file name carries a hash of the source, so an edited source builds
+    anew."""
+    global _stream_lib
+    if _stream_lib is None:
+        with open(_STREAM_SRC, "rb") as f:
+            h = hashlib.sha256(f.read()).hexdigest()[:16]
+        lib = _build_and_open(_STREAM_SRC, os.path.join(
+            _ROOT, "build", "lizard_tpu_torch", f"libxxh32_stream-{h}.so"))
+        lib.ltt_xxh32_state_size.restype = ctypes.c_int
+        lib.ltt_xxh32_reset.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
+        lib.ltt_xxh32_update.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_size_t]
+        lib.ltt_xxh32_digest.restype = ctypes.c_uint32
+        lib.ltt_xxh32_digest.argtypes = [ctypes.c_void_p]
+        _stream_lib = lib
+    return _stream_lib
+
+
+class XXH32:
+    """Streaming xxh32 in native code: the interface and digests of
+    utils/xxh.py::XXH32 (update(bytes) -> self, digest() -> int)."""
+
+    def __init__(self, seed: int = 0):
+        lib = _load_stream()
+        self._state = ctypes.create_string_buffer(lib.ltt_xxh32_state_size())
+        lib.ltt_xxh32_reset(self._state, seed)
+
+    def update(self, data: bytes) -> "XXH32":
+        data = bytes(data)
+        _load_stream().ltt_xxh32_update(self._state, data, len(data))
+        return self
+
+    def digest(self) -> int:
+        return _load_stream().ltt_xxh32_digest(self._state)
 
 
 def decompress(src: bytes, max_out: int) -> bytes:

@@ -734,3 +734,37 @@ def test_oracle_streams_decode_on_card(level, card):
     assert tld.decompress_lanes(streams) == datas
     assert tld.lz_decode.launches == before + 1
     assert [api.decompress(s) for s in streams] == datas
+
+
+# ------------------------------------------- the incremental layer (A6)
+
+
+def test_frame_decoder_on_card(card):
+    """FrameDecoder on the card: a linked frame of 256 KB frame blocks fed
+    a frame block an update (each update one lz_decode call, its chain
+    headed by the window kept in `out`) and in 64 KB chunks, equal to
+    decompress_frame; DecompressStream on the card equal to its input."""
+    from lizard_tpu_torch.streaming import CompressStream, DecompressStream
+    data = text_like(700_000, seed=9) + gen(300_000, seed=10, proba=0.6)
+    frame = tframe.linked_frame(runtime.compress(data, 21), data, 2)
+    info = tframe.parse_frame_header(frame)
+    blocks = tframe._frame_blocks(frame, info.header_size)[0]
+    dec = tframe.FrameDecoder()
+    before = tld.lz_decode.launches
+    out, p = [dec.update(frame[:info.header_size])], info.header_size
+    for stored, blob in blocks:
+        out.append(dec.update(frame[p:p + 4 + len(blob)]))
+        p += 4 + len(blob)
+    out.append(dec.update(frame[p:]))
+    torch.cuda.synchronize()
+    assert b"".join(out) == data == tframe.decompress_frame(frame)
+    assert tld.lz_decode.launches == before + 1 + len(blocks)
+    assert dec.restaged == [k * (256 << 10) for k in range(len(blocks))]
+    assert dec.finished
+    dec = tframe.FrameDecoder()
+    assert b"".join(dec.update(frame[i:i + 65_536])
+                    for i in range(0, len(frame), 65_536)) == data
+    cs, ds = CompressStream(11), DecompressStream()
+    chunks = [data[i:i + 65_536] for i in range(0, 262_144, 65_536)]
+    assert [ds.decompress_continue(cs.compress_continue(c), len(c))
+            for c in chunks] == chunks

@@ -33,7 +33,10 @@ def test_import_pulls_in_no_jax():
             "lizard_tpu_torch.ops.encode_tpu, "
             "lizard_tpu_torch.parallel.pipeline, "
             "lizard_tpu_torch.parallel.multihost, "
-            "lizard_tpu_torch.utils.profiling, lizard_tpu_torch.entry; "
+            "lizard_tpu_torch.utils.profiling, lizard_tpu_torch.entry, "
+            "lizard_tpu_torch.streaming, lizard_tpu_torch.cli, "
+            "lizard_tpu_torch.tools.fullbench, "
+            "lizard_tpu_torch.tools.datagen_cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lizard_tpu')]; print(bad)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
