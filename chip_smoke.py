@@ -122,9 +122,9 @@ on the card, and checks every result against the input bytes:
    (all-gathered by NCCL) the host's cumsum of the block lengths;
 23. entry.entry()'s decode step and entry.dryrun_multichip(4,
    ["cuda:0"] * 4), each sharded path once on tiny shapes;
-   phases 18-23 time their host steps with utils/profiling.py's stage
-   timers, and their kernels' launches join the kernels line's
-   launches_by_path;
+   phases 18-23 time their host steps as spans of utils/profiling.py
+   recorded in memory, and their kernels' launches join the kernels
+   line's launches_by_path;
 24. the oracle (ref/, serial Python on the host: liblizard's bytes): its
    streams at every level 10-49 (64 KB of gen; 16 KB of a 16-symbol
    alphabet at the 11 optimal-parser levels, a Huffman stream asserted at
@@ -166,6 +166,7 @@ Any mismatch or exception exits non-zero; with no CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -201,6 +202,7 @@ ENC_KERNELS = (
      "lizard_tpu/ops/enc_huf.py:41::_henc_kernel", 35),
 )
 ENC_WRAPPERS = ("match_find", "chain_walk", "parse_tokens", "huf_pack")
+SMOKE = "smoke."               # this script's own spans (timed)
 # the encode record's profile of each kernel that has a profiling instance
 PROFILES = {"match_find": "match_profile", "chain_walk": "chain_profile",
             "parse_tokens": "parse_profile", "huf_pack": "huf_profile"}
@@ -423,26 +425,53 @@ def huf_floor_bytes(plan) -> tuple[int, int]:
     return read, written
 
 
-def enc_launches(te, teh) -> tuple[int, int, int, int]:
+@contextlib.contextmanager
+def timed(profiling, name: str):
+    """The block as this script's span SMOKE + name, recorded in memory
+    (utils/profiling.py), the program's spans inside it under it."""
+    with profiling.recording(), profiling.span(SMOKE + name, "host"):
+        yield
+
+
+def smoke_ms(profiling) -> dict[str, list[float]]:
+    """The ms of each of this script's spans (timed) since the last
+    profiling.reset(), by name, in the order they ran."""
+    ms = {}
+    for r in profiling.records():
+        if r.name.startswith(SMOKE):
+            ms.setdefault(r.name[len(SMOKE):], []).append(
+                (r.end_ns - r.start_ns) / 1e6)
+    return ms
+
+
+def counted(name: str) -> int:
+    """utils/profiling.py's counter `name`: a kernel wrapper's calls
+    ("<kernel>.launches") or the kernels it launched
+    ("<kernel>.kernel_launches") since the last reset_counts()."""
+    from lizard_tpu_torch.utils import profiling
+    return profiling.counters()[name]
+
+
+def reset_counts() -> None:
+    """Set every counter of utils/profiling.py to 0 (and drop its spans)."""
+    from lizard_tpu_torch.utils import profiling
+    profiling.reset()
+
+
+def enc_launches() -> tuple[int, int, int, int]:
     """The launch counts of match_find, chain_walk, parse_tokens and
     huf_pack."""
-    return (te.match_find.launches, te.chain_walk.launches,
-            te.parse_tokens.launches, teh.huf_pack.launches)
+    return (counted("match_find.launches"), counted("chain_walk.launches"),
+            counted("parse_tokens.launches"), counted("huf_pack.launches"))
 
 
-def reset_enc_launches(te, teh) -> None:
-    te.match_find.launches = te.chain_walk.launches = 0
-    te.parse_tokens.launches = teh.huf_pack.launches = 0
-    teh.huf_pack.kernel_launches = 0
-
-
-def check_enc_launches(te, teh, cfg, level: int,
+def check_enc_launches(te, cfg, level: int,
                        what: str) -> tuple[int, int, int, int]:
     """The encoder kernels' launches since the last reset; raises unless
     match_find and parse_tokens launched, chain_walk launched exactly at
     the chain tiers and huf_pack exactly at the Huffman levels 30-49 (every
     input here has a stream that its gates code)."""
-    got = enc_launches(te, teh)
+    got = enc_launches()
     if (got[0] < 1 or got[2] < 1 or (got[1] >= 1) != bool(cfg.chain)
             or (got[3] >= 1) != te.huffman_level(level)):
         raise AssertionError(f"{what}: encoder kernel launches {got}")
@@ -570,12 +599,12 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
     import torch
     cfg = te.cfg_for_level(level)
     huff = te.huffman_level(level)
-    reset_enc_launches(te, teh)
+    reset_counts()
     streams = te.encode_blocks_lanes(chunks, level)      # device=None: card
     torch.cuda.synchronize()
-    launches = check_enc_launches(te, teh, cfg, level,
+    launches = check_enc_launches(te, cfg, level,
                                   f"encode level {level}")
-    huf_kernels = teh.huf_pack.kernel_launches
+    huf_kernels = counted("huf_pack.kernel_launches")
     e2e_runs = e2e_encode_ms(te, chunks, level)
     host_runs = None
     if huff:
@@ -858,9 +887,9 @@ def lz_profile(tld, args: dict, decoded: int, reps: int) -> dict:
     deferred share: deferred bytes / decoded bytes) and the most
     pointer-jumping rounds of a block in pass 2 (jump; 0 when pass 2 did
     not run)."""
-    tld.lz_decode.kernel_launches = 0
+    reset_counts()
     _, _, status, meta = tld.lz_decode_meta(**args)
-    per_call = tld.lz_decode.kernel_launches
+    per_call = counted("lz_decode.kernel_launches")
     if (status != tld.OK).any():
         raise AssertionError("lz_decode_meta: a chain did not decode")
     deferred = int(meta[:, tld.META_DEFERRED_BYTES].sum())
@@ -882,11 +911,11 @@ def pallas_batch(tld, tpd, split_streams, level: int, streams, chunks,
     returns the record."""
     import torch
     batch = split_streams(streams)
-    tld.lz_decode.launches = tld.lz_decode.kernel_launches = 0
+    reset_counts()
     out, block_len = tpd.decode_batch_pallas(batch)      # device=None: card
     torch.cuda.synchronize()
-    launches = tld.lz_decode.launches
-    kernel_launches = tld.lz_decode.kernel_launches
+    launches = counted("lz_decode.launches")
+    kernel_launches = counted("lz_decode.kernel_launches")
     if launches != 1:
         raise AssertionError(f"pallas_batch level {level}: {launches} "
                              "lz_decode launches, not 1")
@@ -942,15 +971,15 @@ def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
                              f"{batch.n_blocks} inner blocks")
     if level == 21 and batch.off24.numel() == 0:
         raise AssertionError("the 8 MB level-21 stream has no off24 matches")
-    tld.lz_decode.launches = th.huf_decode.launches = 0
-    tld.lz_decode.kernel_launches = 0
+    reset_counts()
     got = tpd.decompress_pallas(s, len(data))             # device=None: card
     torch.cuda.synchronize()
-    launches = tld.lz_decode.launches
-    kernel_launches = tld.lz_decode.kernel_launches
-    if launches != 1 or th.huf_decode.launches != 0:
+    launches = counted("lz_decode.launches")
+    kernel_launches = counted("lz_decode.kernel_launches")
+    if launches != 1 or counted("huf_decode.launches") != 0:
         raise AssertionError(f"pallas_stream level {level}: launches "
-                             f"lz {launches}, huf {th.huf_decode.launches}")
+                             f"lz {launches}, huf "
+                             f"{counted('huf_decode.launches')}")
     if got != data:
         raise AssertionError(f"pallas_stream level {level}: decode != input")
     if runtime.decompress(s, len(data)) != data:
@@ -1020,10 +1049,10 @@ def lane_huf(th, tlh, runtime, split_into, new_accumulator, streams,
                lambda b, n, k: blobs.append((b, n)) or bytes(n))
     blob12, data12 = fib_blob()
     blobs += [(blob12, len(data12)), (b"\x41", 100)]
-    th.huf_decode.launches = 0
+    reset_counts()
     got = tlh.huf_decompress_lanes(blobs)                 # device=None: card
     torch.cuda.synchronize()
-    launches = th.huf_decode.launches
+    launches = counted("huf_decode.launches")
     if launches != 1:
         raise AssertionError(f"lane_huf: {launches} huf_decode launches")
     for i, ((b, n), g) in enumerate(zip(blobs, got)):
@@ -1091,16 +1120,15 @@ def realfiles(tld, th, runtime, decompress_lanes, build_corpus_realfiles,
     t = time.perf_counter()
     streams = [runtime.compress(c, REALFILE_LEVEL) for c in chunks]
     compress_ms = (time.perf_counter() - t) * 1e3
-    tld.lz_decode.launches = th.huf_decode.launches = 0
-    tld.lz_decode.kernel_launches = 0
+    reset_counts()
     whole = decompress_lanes(streams)
     torch.cuda.synchronize()
     lo, hi = REALFILE_PART
     part = decompress_lanes(streams[lo:hi])
     torch.cuda.synchronize()
-    launches = {"lz_decode": tld.lz_decode.launches,
-                "huf_decode": th.huf_decode.launches,
-                "lz_decode_kernels": tld.lz_decode.kernel_launches}
+    launches = {"lz_decode": counted("lz_decode.launches"),
+                "huf_decode": counted("huf_decode.launches"),
+                "lz_decode_kernels": counted("lz_decode.kernel_launches")}
     for name, got, first in (("whole batch", whole, 0),
                              (f"streams {lo}:{hi}", part, lo)):
         want = chunks[first:first + len(got)]
@@ -1146,11 +1174,11 @@ def linked(tld, runtime, corpus: bytes, smi: str) -> dict:
     if not info.block_linked or len(blocks) != len(corpus) >> 22:
         raise AssertionError("linked frame: not a linked frame of 4 MB "
                              "blocks")
-    tld.lz_decode.launches = tld.lz_decode.kernel_launches = 0
+    reset_counts()
     got = tframe.decompress_frame(fr)                     # device=None: card
     torch.cuda.synchronize()
-    launches = tld.lz_decode.launches
-    kernel_launches = tld.lz_decode.kernel_launches
+    launches = counted("lz_decode.launches")
+    kernel_launches = counted("lz_decode.kernel_launches")
     if launches != 1:
         raise AssertionError(f"linked frame: {launches} lz_decode calls")
     if got != corpus or runtime.decompress(s, len(corpus)) != corpus:
@@ -1184,17 +1212,17 @@ def sharded_lanes(pp, tld, th, profiling, level: int, streams,
     equal to the input, the kernels' calls counted from 0 just before each
     run (one lz_decode call a shard, one huf_decode call a shard at 30-49);
     then each, and decompress_lanes on the same streams, timed whole on the
-    host clock in turns (stage timers), SHARDED_REPS times. Emits and
+    host clock in turns (timed spans), SHARDED_REPS times. Emits and
     returns the record."""
     import torch
     runs = {"one_card": None, "sharded": ["cuda:0"] * SHARDS}
     launches = {}
     for name, devices in runs.items():
-        tld.lz_decode.launches = th.huf_decode.launches = 0
+        reset_counts()
         outs = pp.decode_streams_sharded_lanes(streams, devices)
         torch.cuda.synchronize()
-        launches[name] = {"lz_decode": tld.lz_decode.launches,
-                          "huf_decode": th.huf_decode.launches}
+        launches[name] = {"lz_decode": counted("lz_decode.launches"),
+                          "huf_decode": counted("huf_decode.launches")}
         shards = 1 if devices is None else SHARDS
         if b"".join(outs) != corpus:
             raise AssertionError(f"sharded lanes {name} level {level}: "
@@ -1206,12 +1234,12 @@ def sharded_lanes(pp, tld, th, profiling, level: int, streams,
                                  f"launches {launches[name]}")
     profiling.reset()
     for _ in range(SHARDED_REPS):
-        with profiling.stage("decompress_lanes"):
+        with timed(profiling, "decompress_lanes"):
             tld.decompress_lanes(streams)
         for name, devices in runs.items():
-            with profiling.stage(name):
+            with timed(profiling, name):
                 pp.decode_streams_sharded_lanes(streams, devices)
-    ms = {k: [t * 1e3 for t in v] for k, v in profiling.stages().items()}
+    ms = smoke_ms(profiling)
     rec = {"level": level, "streams": len(streams), "shards": SHARDS,
            "launches": launches,
            **{f"{k}_e2e_ms": statistics.median(v) for k, v in ms.items()},
@@ -1225,7 +1253,7 @@ def xla_decode(pp, xd, profiling, level: int, streams, corpus: bytes,
     """Phase 19 at one level: the all-XLA decoder (ops/decode.py, plain
     PyTorch operations, no kernel of ours) through decode_streams_sharded
     on the card (devices=None: one shard), equal to the input, timed whole;
-    then its steps on the same batch, each synchronised (stage timers):
+    then its steps on the same batch, each synchronised (timed spans):
     split, H2D, the token parse (max_steps + 1 loop steps), resolve, D2H;
     and the first XLA_TRACE_STEPS parse steps timed alone and traced by
     torch.profiler: the CUDA kernels they launch and their summed time
@@ -1235,30 +1263,30 @@ def xla_decode(pp, xd, profiling, level: int, streams, corpus: bytes,
     import torch
     from lizard_tpu_torch.format.levels import Codewords
     profiling.reset()
-    with profiling.stage("e2e"):
+    with timed(profiling, "e2e"):
         outs = pp.decode_streams_sharded(streams, BLOCK)
     if b"".join(outs) != corpus:
         raise AssertionError(f"all-XLA decode level {level}: decode != input")
-    with profiling.stage("split"):
+    with timed(profiling, "split"):
         batch = pp.split_shard(streams, list(range(len(streams))))
     liz = batch.codewords == Codewords.LIZv1
-    with profiling.stage("h2d"):
+    with timed(profiling, "h2d"):
         args = xd.stage_batch(batch, "cuda")
         torch.cuda.synchronize()
-    with profiling.stage("parse"):
+    with timed(profiling, "parse"):
         parsed = xd.token_parse(args, liz, batch.max_tokens)
         torch.cuda.synchronize()
-    with profiling.stage("resolve"):
+    with timed(profiling, "resolve"):
         out, blk_len = xd.resolve_output(
             *parsed, args["flags_len"], args["literals"],
             len(streams) * BLOCK, int((batch.flags_len + 1).sum()))
         torch.cuda.synchronize()
-    with profiling.stage("d2h"):
+    with timed(profiling, "d2h"):
         data, lens = out.cpu(), blk_len.cpu()
     if bytes(data[:int(lens.sum())].numpy()) != corpus:
         raise AssertionError(f"all-XLA decode level {level}: steps != input")
     steps = batch.max_tokens + 1
-    ms = {k: v[0] * 1e3 for k, v in profiling.stages().items()}
+    ms = {k: v[0] for k, v in smoke_ms(profiling).items()}
     # the first XLA_TRACE_STEPS steps alone, then under torch.profiler (a
     # one-step trace first, which pays the tracer's start-up): the CUDA
     # kernels' count and summed time beside the untraced wall time
@@ -1304,15 +1332,15 @@ def xla_encode(xe, te, tld, runtime, frame, ltt, profiling, chunks,
     import torch
     level = XLA_ENC_LEVEL
     profiling.reset()
-    with profiling.stage("frame"):
+    with timed(profiling, "frame"):
         fr = frame.compress_frame_tpu(corpus, level, block_size_id=4,
                                       engine="xla")
     if ltt.decompress_frame(fr) != corpus:
         raise AssertionError("all-XLA encode: the frame did not decode")
     for _ in range(SHARDED_REPS):
-        with profiling.stage("encode_streams_tpu"):
+        with timed(profiling, "encode_streams_tpu"):
             xs = xe.encode_streams_tpu(chunks, level)
-        with profiling.stage("encode_streams_lanes"):
+        with timed(profiling, "encode_streams_lanes"):
             ls = te.encode_streams_lanes(chunks, level)
     if (tld.decompress_lanes(xs) != chunks
             or [runtime.decompress(s, BLOCK) for s in xs] != chunks):
@@ -1326,7 +1354,7 @@ def xla_encode(xe, te, tld, runtime, frame, ltt, profiling, chunks,
     u8 = u8.cuda()
     n = torch.full((xe.BATCH,), xe.N, dtype=torch.int64, device="cuda")
     batch_ms = cuda_ms(lambda: xe._encode_batch(u8, n), SHARDED_REPS)
-    ms = {k: [t * 1e3 for t in v] for k, v in profiling.stages().items()}
+    ms = smoke_ms(profiling)
     rec = {"level": level, "blocks": len(chunks), "bytes": len(corpus),
            "frame_bytes": len(fr), "frame_ms": ms["frame"][0],
            "xla_e2e_ms": statistics.median(ms["encode_streams_tpu"]),
@@ -1351,10 +1379,10 @@ def sharded_encode(pp, te, teh, tld, profiling, chunks, level: int,
     import torch
     cfg = te.cfg_for_level(level)
     devices = ["cuda:0"] * SHARDS
-    reset_enc_launches(te, teh)
+    reset_counts()
     got = pp.encode_blocks_sharded(chunks, level, devices=devices)
     torch.cuda.synchronize()
-    launches = dict(zip(ENC_WRAPPERS, enc_launches(te, teh)))
+    launches = dict(zip(ENC_WRAPPERS, enc_launches()))
     want = {"match_find": SHARDS, "parse_tokens": SHARDS,
             "chain_walk": SHARDS if cfg.chain else 0,
             "huf_pack": SHARDS if te.huffman_level(level) else 0}
@@ -1369,11 +1397,11 @@ def sharded_encode(pp, te, teh, tld, profiling, chunks, level: int,
                              "input")
     profiling.reset()
     for _ in range(SHARDED_REPS):
-        with profiling.stage("encode_blocks_lanes"):
+        with timed(profiling, "encode_blocks_lanes"):
             te.encode_blocks_lanes(chunks, level)
-        with profiling.stage("encode_blocks_sharded"):
+        with timed(profiling, "encode_blocks_sharded"):
             pp.encode_blocks_sharded(chunks, level, devices=devices)
-    ms = {k: [t * 1e3 for t in v] for k, v in profiling.stages().items()}
+    ms = smoke_ms(profiling)
     rec = {"level": level, "blocks": len(chunks), "shards": SHARDS,
            "launches": launches,
            **{f"{k}_e2e_ms": statistics.median(v) for k, v in ms.items()},
@@ -1428,16 +1456,15 @@ def entry_phase(entry, te, teh, tld, th) -> dict:
     out, blk_len = fn(*args)
     if bytes(out.cpu().numpy()) != gen(3000, seed=0) + gen(3000, seed=1):
         raise AssertionError("entry(): the decode step != its batch")
-    reset_enc_launches(te, teh)
-    tld.lz_decode.launches = th.huf_decode.launches = 0
+    reset_counts()
     t = time.perf_counter()
     entry.dryrun_multichip(SHARDS, ["cuda:0"] * SHARDS)
     torch.cuda.synchronize()
     rec = {"entry_blocks": int(blk_len.numel()),
            "dryrun_s": time.perf_counter() - t,
-           "launches": {"lz_decode": tld.lz_decode.launches,
-                        "huf_decode": th.huf_decode.launches,
-                        **dict(zip(ENC_WRAPPERS, enc_launches(te, teh)))}}
+           "launches": {"lz_decode": counted("lz_decode.launches"),
+                        "huf_decode": counted("huf_decode.launches"),
+                        **dict(zip(ENC_WRAPPERS, enc_launches()))}}
     if min(rec["launches"][k] for k in ("lz_decode", "match_find",
                                         "chain_walk", "parse_tokens")) < 1:
         raise AssertionError(f"dryrun_multichip: launches {rec['launches']}")
@@ -1500,11 +1527,11 @@ def oracle_phase(tld, th, runtime, smi: str) -> dict:
     plain = {}
     for fam, levels in families.items():
         ss = [streams[lv] for lv in levels]
-        tld.lz_decode.launches = th.huf_decode.launches = 0
+        reset_counts()
         got = tld.decompress_lanes(ss)
         torch.cuda.synchronize()
-        launches["decompress_lanes"][0] += th.huf_decode.launches
-        launches["decompress_lanes"][1] += tld.lz_decode.launches
+        launches["decompress_lanes"][0] += counted("huf_decode.launches")
+        launches["decompress_lanes"][1] += counted("lz_decode.launches")
         if got != [datas[lv] for lv in levels]:
             raise AssertionError(f"oracle {fam.name}: decompress_lanes")
         huf, rec = both_against_plain(th, tld, ss,
@@ -1514,11 +1541,11 @@ def oracle_phase(tld, th, runtime, smi: str) -> dict:
         plain[fam.name] = {"lz_plain_ms": rec["plain_ms"],
                            "huf_plain_ms": huf["plain_ms"]}
     for level, s in streams.items():
-        tld.lz_decode.launches = th.huf_decode.launches = 0
+        reset_counts()
         got = api.decompress(s)                       # device=None: card
         torch.cuda.synchronize()
-        launches["api_decompress"][0] += th.huf_decode.launches
-        launches["api_decompress"][1] += tld.lz_decode.launches
+        launches["api_decompress"][0] += counted("huf_decode.launches")
+        launches["api_decompress"][1] += counted("lz_decode.launches")
         if got != datas[level]:
             raise AssertionError(f"oracle level {level}: api.decompress")
     if (launches["api_decompress"] != [20, 40]
@@ -1540,10 +1567,10 @@ def oracle_phase(tld, th, runtime, smi: str) -> dict:
         blocks = tframe._frame_blocks(fr, info.header_size)[0]
         if info.block_linked != name.startswith("linked"):
             raise AssertionError(f"oracle frame {name}: linked flag")
-        tld.lz_decode.launches = th.huf_decode.launches = 0
+        reset_counts()
         got = tframe.decompress_frame(fr)             # device=None: card
         torch.cuda.synchronize()
-        n = [th.huf_decode.launches, tld.lz_decode.launches]
+        n = [counted("huf_decode.launches"), counted("lz_decode.launches")]
         launches["decompress_frame"] = [
             a + b for a, b in zip(launches["decompress_frame"], n)]
         if got != fdata or runtime.decompress_frame(fr, len(fdata)) != fdata:
@@ -1682,10 +1709,10 @@ def incremental_phase(tld, th, te, teh, runtime, corpus: bytes,
 
     def count_lz():
         torch.cuda.synchronize()
-        return [th.huf_decode.launches, tld.lz_decode.launches]
+        return [counted("huf_decode.launches"), counted("lz_decode.launches")]
 
     def decoder_run(name, src, chunk, expect):
-        tld.lz_decode.launches = th.huf_decode.launches = 0
+        reset_counts()
         dec, out, _ = feed_decoder(tframe, src, chunk)
         n = count_lz()
         want = list(reversed(decode_batches(src, chunk)))   # [huf, lz]
@@ -1739,7 +1766,7 @@ def incremental_phase(tld, th, te, teh, runtime, corpus: bytes,
     cs = streaming.CompressStream(INC_STREAM_LEVEL)
     streams = [cs.compress_continue(c) for c in chunks]
     host_encode_s = time.perf_counter() - t
-    tld.lz_decode.launches = th.huf_decode.launches = 0
+    reset_counts()
     t = time.perf_counter()
     ds = streaming.DecompressStream()
     got = [ds.decompress_continue(s, len(c)) for s, c in zip(streams, chunks)]
@@ -1759,7 +1786,7 @@ def incremental_phase(tld, th, te, teh, runtime, corpus: bytes,
         "bytes": len(data), "calls": len(chunks), "level": INC_STREAM_LEVEL,
         "host_encode_s": host_encode_s, "e2e_ms": stream_ms}
     # FrameEncoder(backend="gpu") over the corpus in 64 KB updates
-    reset_enc_launches(te, teh)
+    reset_counts()
     t = time.perf_counter()
     enc = tframe.FrameEncoder(INC_ENC_LEVEL, INC_BSID)
     fr = bytearray(enc.begin())
@@ -1768,7 +1795,7 @@ def incremental_phase(tld, th, te, teh, runtime, corpus: bytes,
     fr += enc.end()
     torch.cuda.synchronize()
     enc_ms = (time.perf_counter() - t) * 1e3
-    got = enc_launches(te, teh)
+    got = enc_launches()
     calls = len(corpus) // block
     cfg = te.cfg_for_level(INC_ENC_LEVEL)
     if got != (calls, calls if cfg.chain else 0, calls,
@@ -1816,7 +1843,7 @@ def incremental_phase(tld, th, te, teh, runtime, corpus: bytes,
         with open(liz, "rb") as f:
             if tframe.parse_frame_header(f.read(15)).block_linked is not True:
                 raise AssertionError("cli -BD: not a linked frame")
-        tld.lz_decode.launches = th.huf_decode.launches = 0
+        reset_counts()
         t = time.perf_counter()
         cli.main(["-d", "-f", "-q", liz, back])
         cli_s["BD_d"] = time.perf_counter() - t
@@ -1912,11 +1939,11 @@ def main() -> int:
     for level in MAIN_LEVELS:
         streams = [runtime.compress(c, level) for c in chunks]
         comp = sum(map(len, streams))
-        lz_decode.launches = lz_decode.kernel_launches = 0
+        reset_counts()
         outs = decompress_lanes(streams)          # the card: device=None
         torch.cuda.synchronize()
-        launches = lz_decode.launches
-        main_kernel_launches += lz_decode.kernel_launches
+        launches = counted("lz_decode.launches")
+        main_kernel_launches += counted("lz_decode.kernel_launches")
         if b"".join(outs) != corpus:
             raise AssertionError(f"level {level}: decode != corpus")
         if launches < 1:
@@ -1970,12 +1997,12 @@ def main() -> int:
     for level in HUF_LEVELS:
         streams = [runtime.compress(c, level) for c in chunks]
         comp = sum(map(len, streams))
-        huf_decode.launches = lz_decode.launches = 0
-        lz_decode.kernel_launches = 0
+        reset_counts()
         outs = decompress_lanes(streams)          # the card, entropy="gpu"
         torch.cuda.synchronize()
-        launches = (huf_decode.launches, lz_decode.launches)
-        main_kernel_launches += lz_decode.kernel_launches
+        launches = (counted("huf_decode.launches"),
+                    counted("lz_decode.launches"))
+        main_kernel_launches += counted("lz_decode.kernel_launches")
         if b"".join(outs) != corpus:
             raise AssertionError(f"level {level}: decode != corpus")
         if min(launches) < 1:
@@ -2077,10 +2104,11 @@ def main() -> int:
     for level in SWEEP_LEVELS:
         streams = [runtime.compress(sweep[i:i + BLOCK], level)
                    for i in range(0, len(sweep), BLOCK)]
-        huf_decode.launches = lz_decode.launches = 0
+        reset_counts()
         outs = decompress_lanes(streams)
         torch.cuda.synchronize()
-        launches = (huf_decode.launches, lz_decode.launches)
+        launches = (counted("huf_decode.launches"),
+                    counted("lz_decode.launches"))
         if (b"".join(outs) != sweep or launches[1] < 1
                 or (level >= 30) != (launches[0] >= 1)):
             raise AssertionError(f"sweep level {level} failed "
@@ -2102,10 +2130,11 @@ def main() -> int:
     for level, bsid, data in ((21, 4, far), (41, 4, far),
                               (10, 1, corpus[:2 << 20])):
         frame = compress_frame_fast(data, level, block_size_id=bsid)
-        huf_decode.launches = lz_decode.launches = 0
+        reset_counts()
         got = ltt.decompress_frame(frame)
         torch.cuda.synchronize()
-        launches = (huf_decode.launches, lz_decode.launches)
+        launches = (counted("huf_decode.launches"),
+                    counted("lz_decode.launches"))
         if (got != data or launches[1] < 1
                 or (level >= 30) != (launches[0] >= 1)):
             raise AssertionError(f"frame level {level} bsid {bsid} failed")
@@ -2165,10 +2194,10 @@ def main() -> int:
     sweep_chunks = [sweep[i:i + BLOCK] for i in range(0, len(sweep), BLOCK)]
     for level in range(10, 50):
         cfg = te.cfg_for_level(level)
-        reset_enc_launches(te, teh)
+        reset_counts()
         streams = te.encode_blocks_lanes(sweep_chunks, level)
         torch.cuda.synchronize()
-        launches = check_enc_launches(te, teh, cfg, level,
+        launches = check_enc_launches(te, cfg, level,
                                       f"encode sweep {level}")
         if (decompress_lanes(streams) != sweep_chunks
                 or [runtime.decompress(s, BLOCK) for s in streams]
@@ -2190,10 +2219,10 @@ def main() -> int:
              rng.integers(0, 4, BLOCK, np.uint8).tobytes(), one_flag_block()]
     for level in (11, 21, 49):
         cfg = te.cfg_for_level(level)
-        reset_enc_launches(te, teh)
+        reset_counts()
         streams = te.encode_blocks_lanes(edge, level)
         torch.cuda.synchronize()
-        launches = check_enc_launches(te, teh, cfg, level,
+        launches = check_enc_launches(te, cfg, level,
                                       f"edge blocks {level}")
         if (decompress_lanes(streams) != edge
                 or [runtime.decompress(s, max(len(d), 1))
@@ -2223,10 +2252,10 @@ def main() -> int:
     pblocks = parse_edge_blocks(BLOCK)
     for level in ENC_LEVELS:
         cfg = te.cfg_for_level(level)
-        reset_enc_launches(te, teh)
+        reset_counts()
         streams = te.encode_blocks_lanes(pblocks, level)
         torch.cuda.synchronize()
-        launches = check_enc_launches(te, teh, cfg, level,
+        launches = check_enc_launches(te, cfg, level,
                                       f"parse edge blocks {level}")
         if decompress_lanes(streams) != pblocks:
             raise AssertionError(f"parse edge blocks level {level}: round "
@@ -2243,10 +2272,10 @@ def main() -> int:
     for level in ENC_LEVELS:
         cfg = te.cfg_for_level(level)
         mblocks = match_edge_blocks(cfg.n, cfg.far_dist)
-        reset_enc_launches(te, teh)
+        reset_counts()
         streams = te.encode_blocks_lanes(mblocks, level)
         torch.cuda.synchronize()
-        check_enc_launches(te, teh, cfg, level, f"match edge blocks {level}")
+        check_enc_launches(te, cfg, level, f"match edge blocks {level}")
         if decompress_lanes(streams) != mblocks:
             raise AssertionError(f"match edge blocks level {level}: round "
                                  "trip")
@@ -2271,13 +2300,14 @@ def main() -> int:
         "cases", "segments", "statuses", "max_abs_err", "plain_ms",
         "calls")})
     for level in (21, 41):
-        reset_enc_launches(te, teh)
+        reset_counts()
         frame = compress_frame_lanes(far, level, block_size_id=4)
         torch.cuda.synchronize()
-        launches = check_enc_launches(te, teh, te.cfg_for_level(level),
+        launches = check_enc_launches(te, te.cfg_for_level(level),
                                       level, f"frame -{level}")
-        lz_decode.launches = 0
-        if ltt.decompress_frame(frame) != far or lz_decode.launches < 1:
+        reset_counts()
+        if (ltt.decompress_frame(frame) != far
+                or counted("lz_decode.launches") < 1):
             raise AssertionError(f"the -{level} frame compressed on the card "
                                  "did not decode")
         emit("encode_frame", level=level, block_size_id=4, bytes=len(far),
@@ -2362,7 +2392,8 @@ def main() -> int:
         enc_paths[w]["frame_encoder"] = il["frame_encoder"][w]
 
     # 26. kernels line: launches summed over every path's run, counted
-    # from 0 just before it and read just after
+    # (utils/profiling.py's counters) from 0 just before it and read just
+    # after
     lz_paths = {"decompress_lanes": main_launches,
                 "sweep": sweep_launches[1],
                 "decompress_frame": frame_launches[1],

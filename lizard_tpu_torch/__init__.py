@@ -43,7 +43,9 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 - ``parallel.multihost`` -- the torch.distributed group and
                             decode_streams_global (per-block lengths
                             all-gathered on the device)
-- ``utils.profiling``    -- torch.profiler traces and host stage timers
+- ``utils.profiling``    -- spans at the layer boundaries (recorded under
+                            torch.profiler or recording()), counters of
+                            staged bytes and kernel launches, traces
 - ``entry``              -- the all-XLA decode step and a dry run of every
                             sharded path
 - ``utils.xxh``          -- xxh32 and xxh64 from the specification

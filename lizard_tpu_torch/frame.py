@@ -54,6 +54,7 @@ from lizard_tpu_torch.ops.split import (
 from lizard_tpu_torch.ref import block_decode
 from lizard_tpu_torch.ref.block_encode import DICT, Ctx, Tables, compress_range
 from lizard_tpu_torch.runtime import XXH32, xxh32
+from lizard_tpu_torch.utils import profiling
 
 
 class FrameError(ValueError):
@@ -222,7 +223,8 @@ def _frame(header, comps, parts, data, content_checksum) -> bytes:
         out += _block(part, comp)
     out += (0).to_bytes(4, "little")
     if content_checksum:
-        out += xxh32(data).to_bytes(4, "little")
+        with profiling.span("xxh32", "host"):
+            out += xxh32(data).to_bytes(4, "little")
     return bytes(out)
 
 
@@ -259,6 +261,7 @@ def compress_frame(data: bytes, level: int = 17, block_size_id: int = 0,
     return _frame(header, comps, parts, data, content_checksum)
 
 
+@profiling.traced("compress_frame", "host")
 def compress_frame_lanes(data: bytes, level: int = 11,
                          block_size_id: int = 0,
                          content_checksum: bool = True,
@@ -399,8 +402,11 @@ def frame_end(src: bytes, p: int, info: FrameInfo, out: bytes,
             raise FrameError("missing content checksum")
         stored_crc = int.from_bytes(src[p:p + 4], "little")
         p += 4
-        if verify_checksum and xxh32(out) != stored_crc:
-            raise FrameError("content checksum mismatch")
+        if verify_checksum:
+            with profiling.span("xxh32", "host"):
+                crc = xxh32(out)
+            if crc != stored_crc:
+                raise FrameError("content checksum mismatch")
     if info.content_size is not None and info.content_size != len(out):
         raise FrameError("content size mismatch")
     return p
@@ -469,15 +475,17 @@ def decode_blocks(blocks, linked: bool, dev, entropy: str = "gpu",
         decoded = decode_fused(batch, plan, dev, first=skip)
     else:
         acc = new_accumulator()
-        batch = finalize(acc, split(acc, None))
+        with profiling.span("split", "host"):
+            batch = finalize(acc, split(acc, None))
         decoded = decode_batch_lanes(batch, device=dev, first=skip)
-    parts = []
-    for first, end, stored in spans[len(head):]:
-        part = b"".join(decoded[first - skip:end - skip])
-        if not stored and max_out is not None and len(part) > max_out:
-            raise CorruptError("output exceeds max_out")
-        parts.append(part)
-    return parts
+    with profiling.span("answer", "host"):
+        parts = []
+        for first, end, stored in spans[len(head):]:
+            part = b"".join(decoded[first - skip:end - skip])
+            if not stored and max_out is not None and len(part) > max_out:
+                raise CorruptError("output exceeds max_out")
+            parts.append(part)
+        return parts
 
 
 def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
@@ -485,10 +493,11 @@ def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
     """Every frame block of a frame in one batch (decode_blocks), joined;
     a corrupt block raises FrameError."""
     try:
-        return b"".join(decode_blocks(blocks, linked, dev, entropy,
-                                      max_block))
+        parts = decode_blocks(blocks, linked, dev, entropy, max_block)
     except CorruptError as e:
         raise FrameError(f"block decode failed: {e}") from e
+    with profiling.span("answer", "host"):
+        return b"".join(parts)
 
 
 def decompress_one_frame(src: bytes, verify_checksum: bool = True,
@@ -507,14 +516,16 @@ def decompress_one_frame(src: bytes, verify_checksum: bool = True,
                 raise FrameError("skippable frame truncated")
             return b"", 8 + size
     dev = resolve_device(device)
-    info = parse_frame_header(src)
-    blocks, p = _frame_blocks(src, info.header_size)
+    with profiling.span("frame_parse", "host"):
+        info = parse_frame_header(src)
+        blocks, p = _frame_blocks(src, info.header_size)
     out = _decode_frame_blocks(blocks, info.block_linked,
                                LIZARDF_BLOCK_SIZES[info.block_size_id], dev,
                                entropy)
     return out, frame_end(src, p, info, out, verify_checksum)
 
 
+@profiling.traced("decompress_frame", "host")
 def decompress_frame(src: bytes, verify_checksum: bool = True, device=None,
                      entropy: str = "gpu") -> bytes:
     """Decode one frame (decompress_one_frame); raises FrameError on any

@@ -23,7 +23,9 @@ orders the segments longest first.
 `huf_pack` is the kernel wrapper; `huf_pack_plain` is the plain PyTorch
 version with the same signature and outputs. A CPU tensor goes to the
 plain version; a CUDA tensor launches the kernel or raises.
-`huf_pack_profile` launches the kernel's profiling instance.
+`huf_pack_profile` launches the kernel's profiling instance. Its calls and
+kernels are counted in utils/profiling.py as "huf_pack.launches" and
+"huf_pack.kernel_launches".
 """
 
 import ctypes
@@ -43,6 +45,7 @@ from lizard_tpu_torch.ref.huf_encode import (
     huf_build_ctable,
     huf_write_ctable,
 )
+from lizard_tpu_torch.utils import profiling
 
 MAXBITS = 11                   # HUF_TABLELOG_DEFAULT: codes are <= 11 bits
 SEGMENTS = 4                   # per stream, in order
@@ -98,6 +101,7 @@ class HufEncPlan:
 
     def stage(self, device) -> dict:
         """The kernel inputs on `device`, as keyword arguments of huf_pack."""
+        profiling.count_bytes("h2d_bytes", self.data, self.segs, self.tables)
         return {"data": self.data.to(device), "segs": self.segs.to(device),
                 "tables": self.tables.to(device), "n_words": self.n_words}
 
@@ -192,10 +196,6 @@ def huf_pack(data, segs, tables, n_words: int):
     return _pack_launch(data, segs, tables, n_words, None)
 
 
-huf_pack.launches = 0          # calls that launched the pack kernel
-huf_pack.kernel_launches = 0   # kernels launched: 2 a call (prep, pack)
-
-
 def huf_pack_profile(data, segs, tables, n_words: int):
     """huf_pack on CUDA tensors with a profile beside its outputs: (words,
     bits, status, prof int64 (segments, PROF_FIELDS)), prof's columns per
@@ -249,11 +249,13 @@ def _pack_launch(data, segs, tables, n_words: int, prof):
         torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"huf_pack launch failed: cudaError {err}")
+    # "launches": calls that launched the pack kernel; "kernel_launches":
+    # kernels launched, 2 a call (prep, pack)
     if S:
-        huf_pack.launches += 1
-        huf_pack.kernel_launches += 2
+        profiling.count("huf_pack.launches")
+        profiling.count("huf_pack.kernel_launches", 2)
     elif n_words:
-        huf_pack.kernel_launches += 1
+        profiling.count("huf_pack.kernel_launches")
     return scratch[:n_words], bits, status
 
 
@@ -333,6 +335,7 @@ def huf_pack_plain(data, segs, tables, n_words: int):
 def raise_on_status(status, plan: HufEncPlan) -> None:
     """Raise RuntimeError naming the stream (its index in the batch) of the
     first segment whose status is not OK."""
+    profiling.count_bytes("d2h_bytes", status)
     st = status.cpu()
     bad = torch.nonzero(st != OK).flatten()
     if bad.numel():
@@ -350,22 +353,26 @@ def finish(plan: HufEncPlan, words, bits) -> list:
     blob (header, the three LE16 sizes of the first bitstreams, the four
     bitstreams) is not below n - 1 bytes (huf_compress_tpu l.326-334).
     Returns plan.blobs, filled in."""
-    raw = words.cpu().numpy().astype("<i4").tobytes()
-    b = bits.cpu().tolist()
-    segs = plan.segs.tolist()
-    for t, i in enumerate(plan.coded):
-        parts = []
-        for s in range(SEGMENTS * t, SEGMENTS * (t + 1)):
-            w0 = 4 * segs[s][3]
-            parts.append(raw[w0:w0 + (b[s] + 1 + 7) // 8])
-        n = sum(segs[s][1] for s in range(SEGMENTS * t, SEGMENTS * (t + 1)))
-        if any(len(p) == 0 or len(p) > 0xFFFF for p in parts):
-            continue
-        jump = b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
-        out = plan.headers[t] + jump + b"".join(parts)
-        if len(out) < n - 1:
-            plan.blobs[i] = out
-    return plan.blobs
+    with profiling.span("huf_readback", "device"):
+        profiling.count_bytes("d2h_bytes", words, bits)
+        raw = words.cpu().numpy().astype("<i4").tobytes()
+        b = bits.cpu().tolist()
+    with profiling.span("huf_finish", "host"):
+        segs = plan.segs.tolist()
+        for t, i in enumerate(plan.coded):
+            parts = []
+            for s in range(SEGMENTS * t, SEGMENTS * (t + 1)):
+                w0 = 4 * segs[s][3]
+                parts.append(raw[w0:w0 + (b[s] + 1 + 7) // 8])
+            n = sum(segs[s][1]
+                    for s in range(SEGMENTS * t, SEGMENTS * (t + 1)))
+            if any(len(p) == 0 or len(p) > 0xFFFF for p in parts):
+                continue
+            jump = b"".join(len(p).to_bytes(2, "little") for p in parts[:3])
+            out = plan.headers[t] + jump + b"".join(parts)
+            if len(out) < n - 1:
+                plan.blobs[i] = out
+        return plan.blobs
 
 
 def huf_compress_batch(streams, device=None) -> list:
@@ -377,9 +384,12 @@ def huf_compress_batch(streams, device=None) -> list:
     huf_compress) and to the native ltpu_huf_compress. A batch with no
     stream to code launches nothing; a status that is not OK raises."""
     dev = resolve_device(device)
-    plan = plan_huf_streams(streams)
+    with profiling.span("huf_plan", "host"):
+        plan = plan_huf_streams(streams)
     if not plan.coded:
         return plan.blobs
-    words, bits, status = huf_pack(**plan.stage(dev))
-    raise_on_status(status, plan)
+    with profiling.span("huf_pack", "device"):
+        words, bits, status = huf_pack(**plan.stage(dev))
+    with profiling.span("huf_readback", "device"):
+        raise_on_status(status, plan)
     return finish(plan, words, bits)

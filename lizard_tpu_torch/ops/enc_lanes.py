@@ -28,7 +28,8 @@ no TokenOverflow and no host fallback.
 Each device step has a wrapper (`match_find`, `chain_walk`, `parse_tokens`)
 and a plain PyTorch version with the same signature and outputs
 (`*_plain`). A CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises. Their calls are counted in utils/profiling.py as
+"match_find.launches", "chain_walk.launches" and "parse_tokens.launches".
 """
 
 import ctypes
@@ -57,6 +58,7 @@ from lizard_tpu_torch.format.constants import (
 )
 from lizard_tpu_torch.ops import _build
 from lizard_tpu_torch.ops.enc_huf import huf_compress_batch
+from lizard_tpu_torch.utils import profiling
 
 SEG = 128                     # positions per segment (one table update)
 HMUL = 2654435761
@@ -161,8 +163,11 @@ def pack_blocks(blocks, cfg: EncCfg, device="cpu"):
             raise ValueError(f"block {b}: {len(d)} bytes > cfg.n = {cfg.n}")
         u8[b, :len(d)] = np.frombuffer(d, np.uint8)
         lens[b] = len(d)
-    return (torch.from_numpy(u8).to(device),
-            torch.from_numpy(lens).to(device))
+    host = torch.from_numpy(u8), torch.from_numpy(lens)
+    with profiling.span("pack", "device"):
+        staged = tuple(t.to(device) for t in host)
+    profiling.count_bytes("h2d_bytes", *host)
+    return staged
 
 
 def maps_from_reference(ref, cfg: EncCfg = None) -> torch.Tensor:
@@ -241,12 +246,10 @@ def match_find(data, lens, cfg: EncCfg) -> torch.Tensor:
     CUDA tensors launch csrc/enc_match.cu on the current stream without
     synchronising; CPU tensors run match_find_plain."""
     _check_data(data, lens, cfg)
-    if data.device.type == "cpu":
-        return match_find_plain(data, lens, cfg)
-    return _match_launch(data, lens, cfg, None)
-
-
-match_find.launches = 0
+    with profiling.span("match_find", "device"):
+        if data.device.type == "cpu":
+            return match_find_plain(data, lens, cfg)
+        return _match_launch(data, lens, cfg, None)
 
 
 def match_find_profile(data, lens, cfg: EncCfg):
@@ -300,7 +303,7 @@ def _match_launch(data, lens, cfg: EncCfg, prof):
                  None if tables is None else tables.data_ptr(),
                  None if prof is None else prof.data_ptr(), stream)
     _raise_on(err, "match_find")
-    match_find.launches += 1
+    profiling.count("match_find.launches")
     return maps
 
 
@@ -450,12 +453,10 @@ def chain_walk(data, lens, maps, cfg: EncCfg) -> torch.Tensor:
     _check_maps(maps, data, cfg.nmaps, cfg)
     if not cfg.chain:
         raise ValueError("chain_walk needs cfg.chain > 0")
-    if data.device.type == "cpu":
-        return chain_walk_plain(data, lens, maps, cfg)
-    return _chain_launch(data, maps, cfg, None)
-
-
-chain_walk.launches = 0
+    with profiling.span("chain_walk", "device"):
+        if data.device.type == "cpu":
+            return chain_walk_plain(data, lens, maps, cfg)
+        return _chain_launch(data, maps, cfg, None)
 
 
 def chain_walk_profile(data, lens, maps, cfg: EncCfg):
@@ -504,7 +505,7 @@ def _chain_launch(data, maps, cfg: EncCfg, prof):
                  out.data_ptr(), None if prof is None else prof.data_ptr(),
                  stream)
     _raise_on(err, "chain_walk")
-    chain_walk.launches += 1
+    profiling.count("chain_walk.launches")
     return out
 
 
@@ -578,9 +579,10 @@ def parse_tokens(data, lens, maps, cfg: EncCfg):
     synchronising; CPU tensors run parse_tokens_plain."""
     _check_data(data, lens, cfg)
     _check_maps(maps, data, cfg.ncand, cfg)
-    if data.device.type == "cpu":
-        return parse_tokens_plain(data, lens, maps, cfg)
-    return _parse_launch(data, lens, maps, cfg, None)
+    with profiling.span("parse_tokens", "device"):
+        if data.device.type == "cpu":
+            return parse_tokens_plain(data, lens, maps, cfg)
+        return _parse_launch(data, lens, maps, cfg, None)
 
 
 def parse_tokens_profile(data, lens, maps, cfg: EncCfg):
@@ -630,11 +632,8 @@ def _parse_launch(data, lens, maps, cfg: EncCfg, prof):
                  tok.data_ptr(), counts.data_ptr(),
                  None if prof is None else prof.data_ptr(), stream)
     _raise_on(err, "parse_tokens")
-    parse_tokens.launches += 1
+    profiling.count("parse_tokens.launches")
     return tok[:, :T], counts
-
-
-parse_tokens.launches = 0
 
 
 def _first_mismatch(u8, flat, start, dist, lim, win):
@@ -779,13 +778,18 @@ def token_arrays(tok, counts) -> list[tuple[np.ndarray, ...]]:
     """Per block, the (st, ml, off) int64 numpy arrays of a parse_tokens
     result, in parse order. Copies the counts, then only the used prefix of
     the token slots, to the host."""
-    c = counts.cpu().numpy()
-    if (c < 0).any():
-        raise RuntimeError(f"parse_tokens overflowed its token slots in "
-                           f"block {int(np.flatnonzero(c < 0)[0])}")
-    used = int(c.max(initial=0))
-    t = tok[:, :used].cpu().numpy().astype(np.int64)
-    return [(t[b, :k, 0], t[b, :k, 1], t[b, :k, 2]) for b, k in enumerate(c)]
+    with profiling.span("tokens", "device"):
+        profiling.count_bytes("d2h_bytes", counts)
+        c = counts.cpu().numpy()
+        if (c < 0).any():
+            raise RuntimeError(f"parse_tokens overflowed its token slots in "
+                               f"block {int(np.flatnonzero(c < 0)[0])}")
+        used = int(c.max(initial=0))
+        head = tok[:, :used]
+        profiling.count_bytes("d2h_bytes", head)
+        t = head.cpu().numpy().astype(np.int64)
+        return [(t[b, :k, 0], t[b, :k, 1], t[b, :k, 2])
+                for b, k in enumerate(c)]
 
 
 # ------------------------------------------------ emission and container
@@ -886,14 +890,17 @@ def encode_blocks_lanes(blocks, level=10, cfg: EncCfg = None, device=None,
         if cfg.chain:
             maps = chain_walk(data, lens, maps, cfg)
         toks = token_arrays(*parse_tokens(data, lens, maps, _parse_cfg(cfg)))
-        emitted = [emit_streams(d, *t, level) for d, t in zip(part, toks)]
+        with profiling.span("emit", "host"):
+            emitted = [emit_streams(d, *t, level) for d, t in zip(part, toks)]
         blobs = None
         if huff and entropy == "gpu":
-            cands = huf_candidates(emitted)
+            with profiling.span("huf_plan", "host"):
+                cands = huf_candidates(emitted)
             blobs = dict(zip(cands, huf_compress_batch(cands, dev)))
-        for d, (flags, lits, off16, off24) in zip(part, emitted):
-            out.append(bytes([level]) + assemble_block(
-                d, flags, lits, off16, huff, off24, blobs))
+        with profiling.span("assemble", "host"):
+            for d, (flags, lits, off16, off24) in zip(part, emitted):
+                out.append(bytes([level]) + assemble_block(
+                    d, flags, lits, off16, huff, off24, blobs))
     return out
 
 

@@ -29,6 +29,7 @@ from lizard_tpu_torch.ops.lane_decode import (
     join_streams, lz_decode, read_blocks, stage_batch)
 from lizard_tpu_torch.ops.split import (
     STREAMS, TABLE_FIELDS, BlockBatch, finalize, new_accumulator, split_into)
+from lizard_tpu_torch.utils import profiling
 
 
 def build_fused_plan(streams: list[bytes]) -> tuple[BlockBatch, HufPlan]:
@@ -48,19 +49,21 @@ def plan_split(split) -> tuple[BlockBatch, HufPlan]:
     def hole(blob, orig, kind):
         pend.append((blob, orig, kind, len(acc["stream_id"])))
         return np.zeros(orig, np.uint8)
-    batch = finalize(acc, split(acc, hole))
-    dests, names = [], []
-    for _, _, kind, block in pend:
-        k = STREAMS.index(kind)
-        offsets = getattr(batch, TABLE_FIELDS[2 * k])   # <kind>_off
-        dests.append((k, int(offsets[block])))
-        names.append(f"stream {int(batch.stream_id[block])}, block {block}"
-                     f" ({kind})")
-    plan = prepare_huf128([(blob, orig) for blob, orig, _, _ in pend],
-                          dests, names)
-    for k, off, data in plan.fills:
-        getattr(batch, STREAMS[k])[off:off + len(data)] = torch.frombuffer(
-            bytearray(data), dtype=torch.uint8)
+    with profiling.span("split", "host"):
+        batch = finalize(acc, split(acc, hole))
+    with profiling.span("plan", "host"):
+        dests, names = [], []
+        for _, _, kind, block in pend:
+            k = STREAMS.index(kind)
+            offsets = getattr(batch, TABLE_FIELDS[2 * k])   # <kind>_off
+            dests.append((k, int(offsets[block])))
+            names.append(f"stream {int(batch.stream_id[block])}, "
+                         f"block {block} ({kind})")
+        plan = prepare_huf128([(blob, orig) for blob, orig, _, _ in pend],
+                              dests, names)
+        for k, off, data in plan.fills:
+            getattr(batch, STREAMS[k])[off:off + len(data)] = \
+                torch.frombuffer(bytearray(data), dtype=torch.uint8)
     return batch, plan
 
 
@@ -88,5 +91,6 @@ def decode_fused(batch: BlockBatch, plan: HufPlan, device=None,
                                 **{k: args[k] for k in STREAMS})
     result = lz_decode(**args)
     if huf_status is not None:
-        raise_on_status(huf_status, plan)
+        with profiling.span("readback", "device"):
+            raise_on_status(huf_status, plan)
     return read_blocks(batch, args, *result, first=first)

@@ -19,7 +19,8 @@ episodes) is built.
 
 `huf_decode` is the kernel wrapper; `huf_decode_plain` is the plain
 PyTorch version with the same signature and outputs. A CPU tensor goes to
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernel or raises. Its calls
+are counted in utils/profiling.py as "huf_decode.launches".
 """
 
 import ctypes
@@ -32,6 +33,7 @@ from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.errors import HufError
 from lizard_tpu_torch.ops import _build
 from lizard_tpu_torch.ref.huf import HUF_TABLELOG_MAX, huf_read_stats
+from lizard_tpu_torch.utils import profiling
 
 TABLE_ENTRIES = 1 << HUF_TABLELOG_MAX      # every table padded to 4096
 SEGMENTS = 4                               # per blob, in order
@@ -67,9 +69,12 @@ class HufPlan:
     def stage(self, device) -> dict:
         """The kernel inputs on `device`, as keyword arguments of
         huf_decode (the destinations apart)."""
-        return {"data": self.data.to(device), "segs": self.segs.to(device),
-                "tables": self.tables.to(device),
-                "table_log": self.table_log.to(device)}
+        host = {"data": self.data, "segs": self.segs, "tables": self.tables,
+                "table_log": self.table_log}
+        with profiling.span("stage", "device"):
+            args = {k: t.to(device) for k, t in host.items()}
+        profiling.count_bytes("h2d_bytes", *host.values())
+        return args
 
 
 def decode_table(weights, table_log: int) -> np.ndarray:
@@ -224,7 +229,7 @@ def _launch(data, segs, tables, table_log, dests, rounds) -> torch.Tensor:
                  None if rounds is None else rounds.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"huf_decode launch failed: cudaError {err}")
-    huf_decode.launches += 1
+    profiling.count("huf_decode.launches")
     return status
 
 
@@ -240,14 +245,13 @@ def huf_decode(data, segs, tables, table_log, flags, literals, off16, off24):
     synchronising; CPU tensors run huf_decode_plain."""
     dests = (flags, literals, off16, off24)
     _check(data, segs, tables, table_log, dests)
-    if data.device.type == "cpu":
-        return huf_decode_plain(data, segs, tables, table_log, *dests)
-    if data.device.type != "cuda":
-        raise ValueError(f"huf_decode runs on cuda or cpu, not {data.device}")
-    return _launch(data, segs, tables, table_log, dests, None)
-
-
-huf_decode.launches = 0
+    with profiling.span("huf_decode", "device"):
+        if data.device.type == "cpu":
+            return huf_decode_plain(data, segs, tables, table_log, *dests)
+        if data.device.type != "cuda":
+            raise ValueError(f"huf_decode runs on cuda or cpu, not "
+                             f"{data.device}")
+        return _launch(data, segs, tables, table_log, dests, None)
 
 
 def huf_decode_rounds(data, segs, tables, table_log, flags, literals, off16,
@@ -338,6 +342,7 @@ def huf_decode_plain(data, segs, tables, table_log, flags, literals, off16,
 
 def raise_on_status(status, plan: HufPlan) -> None:
     """Raise HufError naming the first corrupt segment's blob."""
+    profiling.count_bytes("d2h_bytes", status)
     st = status.cpu()
     bad = torch.nonzero(st != OK).flatten()
     if bad.numel():
@@ -361,6 +366,7 @@ def huf_decompress_128(blobs, device=None) -> list[bytes]:
         status = huf_decode(**plan.stage(dev), flags=out, literals=empty,
                             off16=empty, off24=empty)
         raise_on_status(status, plan)
+        profiling.count_bytes("d2h_bytes", out)
         flat = out.cpu().numpy()
     for _, dst, data in plan.fills:
         flat[dst:dst + len(data)] = np.frombuffer(data, np.uint8)

@@ -15,7 +15,9 @@ non-final inner block is short decodes like any other.
 
 `lz_decode` is the kernel wrapper; `lz_decode_plain` is the plain PyTorch
 version with the same signature and outputs. A CPU tensor goes to the plain
-version; a CUDA tensor launches the kernels or raises.
+version; a CUDA tensor launches the kernels or raises. Its calls and kernel
+launches are counted in utils/profiling.py as "lz_decode.launches" and
+"lz_decode.kernel_launches".
 """
 
 import ctypes
@@ -39,6 +41,7 @@ from lizard_tpu_torch.format.constants import (
 )
 from lizard_tpu_torch.ops import _build
 from lizard_tpu_torch.ops.split import STREAMS, BlockBatch, split_streams
+from lizard_tpu_torch.utils import profiling
 
 # per-chain status codes, shared with csrc/lz_decode.cu
 OK = 0
@@ -78,10 +81,14 @@ def stage_batch(batch: BlockBatch, device) -> dict:
     """Move a batch to `device` once: the four flat streams, the block
     table and the chain table, as the keyword arguments of lz_decode."""
     batch.validate()
-    args = {name: getattr(batch, name).to(device) for name in STREAMS}
-    args["blocks"] = batch.block_table().to(device)
-    args["chains"] = chain_table(batch.stream_id).to(device)
-    args["family"] = batch.family_arg(device)
+    host = {name: getattr(batch, name) for name in STREAMS}
+    host["blocks"] = batch.block_table()
+    host["chains"] = chain_table(batch.stream_id)
+    with profiling.span("stage", "device"):
+        args = {name: t.to(device) for name, t in host.items()}
+        args["family"] = batch.family_arg(device)
+    profiling.count_bytes("h2d_bytes", *(
+        t for t in args.values() if isinstance(t, torch.Tensor)))
     return args
 
 
@@ -169,21 +176,18 @@ def lz_decode(flags, literals, off16, off24, blocks, chains, family):
 
     CUDA tensors launch csrc/lz_decode.cu on the current stream without
     synchronising: two kernels when every chain is one block, five when a
-    chain has more (`lz_decode.kernel_launches` adds them up, as
-    `lz_decode.launches` counts the calls). Pass 2's scratch, for the
+    chain has more (counted as "lz_decode.kernel_launches", the calls as
+    "lz_decode.launches"). Pass 2's scratch, for the
     non-first blocks of chains only, is 4 bytes per byte of those blocks
     plus 12 bytes per flags byte; a chain has at most MAX_CHAIN_BLOCKS
     blocks (else ValueError). CPU tensors run lz_decode_plain."""
     _check(flags, literals, off16, off24, blocks, chains, family)
-    if flags.device.type == "cpu":
-        return lz_decode_plain(flags, literals, off16, off24, blocks, chains,
-                               family)
-    return lz_decode_meta(flags, literals, off16, off24, blocks, chains,
-                          family)[:3]
-
-
-lz_decode.launches = 0
-lz_decode.kernel_launches = 0
+    with profiling.span("lz_decode", "device"):
+        if flags.device.type == "cpu":
+            return lz_decode_plain(flags, literals, off16, off24, blocks,
+                                   chains, family)
+        return lz_decode_meta(flags, literals, off16, off24, blocks, chains,
+                              family)[:3]
 
 
 def lz_decode_meta(flags, literals, off16, off24, blocks, chains, family):
@@ -230,10 +234,10 @@ def lz_decode_meta(flags, literals, off16, off24, blocks, chains, family):
                  bchain.data_ptr(), start.data_ptr(), cinfo.data_ptr(),
                  ptr.data_ptr() if n_scratch else None,
                  ctypes.addressof(launched), stream)
-    lz_decode.kernel_launches += launched.value
+    profiling.count("lz_decode.kernel_launches", launched.value)
     if err != 0:
         raise RuntimeError(f"lz_decode launch failed: cudaError {err}")
-    lz_decode.launches += 1
+    profiling.count("lz_decode.launches")
     return out, block_len, status, meta
 
 
@@ -405,6 +409,7 @@ def _decode_block(host, row, family, literals, out, base, op, bend):
 def raise_on_status(batch: BlockBatch, chains, status) -> None:
     """Raise CorruptError naming the stream of the first corrupt chain of
     an lz_decode result."""
+    profiling.count_bytes("d2h_bytes", status)
     status = status.cpu()
     bad = torch.nonzero(status != OK).flatten()
     if bad.numel():
@@ -420,21 +425,26 @@ def read_blocks(batch: BlockBatch, args: dict, out, block_len,
     span of `out` those blocks cover (blocks before `first`, such as a
     history that heads a chain, are not copied). Raises CorruptError on a
     corrupt chain. `args` is the staged batch the result came from."""
-    chains = args["chains"].cpu()
-    raise_on_status(batch, chains, status)
-    lens = block_len.cpu().tolist()
-    spans = []                                  # (output position, length)
-    for c0, count, base in chains.tolist():
-        pos = base
-        for b in range(c0, c0 + count):
-            if b >= first:
-                spans.append((pos, lens[b]))
-            pos += lens[b]
-    if not spans:
-        return []
-    lo, hi = spans[0][0], max(p + n for p, n in spans)
-    data = out[lo:hi].cpu().numpy()
-    return [data[p - lo:p - lo + n].tobytes() for p, n in spans]
+    with profiling.span("readback", "device"):
+        chains = args["chains"]
+        profiling.count_bytes("d2h_bytes", chains, block_len)
+        chains = chains.cpu()
+        raise_on_status(batch, chains, status)
+        lens = block_len.cpu().tolist()
+        spans = []                              # (output position, length)
+        for c0, count, base in chains.tolist():
+            pos = base
+            for b in range(c0, c0 + count):
+                if b >= first:
+                    spans.append((pos, lens[b]))
+                pos += lens[b]
+        if not spans:
+            return []
+        lo, hi = spans[0][0], max(p + n for p, n in spans)
+        profiling.count("d2h_bytes", hi - lo)
+        data = out[lo:hi].cpu().numpy()
+    with profiling.span("answer", "host"):
+        return [data[p - lo:p - lo + n].tobytes() for p, n in spans]
 
 
 def decode_batch_lanes(batch: BlockBatch, device=None,
@@ -450,12 +460,14 @@ def decode_batch_lanes(batch: BlockBatch, device=None,
 def join_streams(batch: BlockBatch, blocks: list[bytes],
                  n_streams: int) -> list[bytes]:
     """The decoded bytes of each of n_streams streams, from its blocks."""
-    parts = [[] for _ in range(n_streams)]
-    for sid, data in zip(batch.stream_id.tolist(), blocks):
-        parts[sid].append(data)
-    return [b"".join(p) for p in parts]
+    with profiling.span("answer", "host"):
+        parts = [[] for _ in range(n_streams)]
+        for sid, data in zip(batch.stream_id.tolist(), blocks):
+            parts[sid].append(data)
+        return [b"".join(p) for p in parts]
 
 
+@profiling.traced("decompress_lanes", "host")
 def decompress_lanes(streams: list[bytes], device=None,
                      entropy: str = "gpu") -> list[bytes]:
     """Decode independent compressed streams (either codeword family, all

@@ -33,6 +33,7 @@ from lizard_tpu_torch.format.constants import (
 )
 from lizard_tpu_torch.format.levels import LEVELS, Codewords
 from lizard_tpu_torch.ops.huf128 import huf_decompress_128
+from lizard_tpu_torch.utils import profiling
 
 STREAMS = ("flags", "literals", "off16", "off24")
 # per-block (offset, length) field names, in the column order of
@@ -287,14 +288,16 @@ def split_streams(streams: list[bytes], entropy: str = "host",
         raise ValueError(f"unknown entropy route {entropy!r}")
     acc = new_accumulator()
     if entropy == "host":
-        return finalize(acc, split_into(streams, acc))
+        with profiling.span("split", "host"):
+            return finalize(acc, split_into(streams, acc))
     pend = []
 
     def hole(blob, orig, kind):
         buf = np.zeros(orig, np.uint8)
         pend.append((blob, orig, buf))
         return buf
-    family = split_into(streams, acc, hole)
+    with profiling.span("split", "host"):
+        family = split_into(streams, acc, hole)
     if pend:
         outs = huf_decompress_128([(blob, orig) for blob, orig, _ in pend],
                                   device=device)

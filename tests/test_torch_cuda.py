@@ -38,6 +38,7 @@ from lizard_tpu_torch.ops.split import (
     STREAMS, new_accumulator, split_into, split_streams)
 from lizard_tpu_torch.ref import block_encode
 from lizard_tpu_torch.ref.huf import huf_read_stats
+from lizard_tpu_torch.utils import profiling
 from lizard_tpu_torch.utils.datagen import gen, text_like
 from tests.torch_cases import (HUF_PACK_CASES, chain_tail_maps,
                                huf_pack_against_plain, huf_pack_cases,
@@ -49,6 +50,12 @@ from tests.torch_cases import (HUF_PACK_CASES, chain_tail_maps,
 pytestmark = pytest.mark.cuda
 
 
+def count(name: str) -> int:
+    """A counter of utils/profiling.py: kernel calls ("<kernel>.launches")
+    and kernels launched ("<kernel>.kernel_launches")."""
+    return profiling.counters()[name]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -58,10 +65,10 @@ def card():
 
 def _kernel_and_plain(streams, card):
     args = tld.stage_batch(split_streams(streams), card)
-    before = tld.lz_decode.launches
+    before = count("lz_decode.launches")
     k = tld.lz_decode(**args)
     torch.cuda.synchronize()
-    assert tld.lz_decode.launches == before + 1
+    assert count("lz_decode.launches") == before + 1
     p = tld.lz_decode_plain(**args)
     return args, k, p
 
@@ -120,10 +127,10 @@ def _huf_kernel_and_plain(batch, plan, card):
     runs = []
     for fn in (th.huf_decode, th.huf_decode_plain):
         dests = {k: getattr(batch, k).to(card) for k in STREAMS}
-        before = th.huf_decode.launches
+        before = count("huf_decode.launches")
         status = fn(**staged, **dests)
         torch.cuda.synchronize()
-        assert th.huf_decode.launches == before + (fn is th.huf_decode)
+        assert count("huf_decode.launches") == before + (fn is th.huf_decode)
         runs.append((status, dests))
     return runs
 
@@ -141,9 +148,9 @@ def test_huf_kernel_matches_plain(level, card):
     for k in STREAMS:
         assert torch.equal(kd[k], pd[k]), k
         assert torch.equal(kd[k].cpu(), getattr(host, k)), k
-    before = (th.huf_decode.launches, tld.lz_decode.launches)
+    before = (count("huf_decode.launches"), count("lz_decode.launches"))
     assert tld.decompress_lanes(streams) == datas
-    assert (th.huf_decode.launches, tld.lz_decode.launches) == (
+    assert (count("huf_decode.launches"), count("lz_decode.launches")) == (
         before[0] + 1, before[1] + 1)
 
 
@@ -200,10 +207,10 @@ def test_huf_kernel_rounds(card):
     total = sum(len(d) for _, _, d in cases)
     out = torch.zeros(total, dtype=torch.uint8, device=card)
     e = torch.empty(0, dtype=torch.uint8, device=card)
-    before = th.huf_decode.launches
+    before = count("huf_decode.launches")
     status, rounds = th.huf_decode_rounds(*(t.to(card) for t in plan), out,
                                           e, e, e)
-    assert th.huf_decode.launches == before + 1
+    assert count("huf_decode.launches") == before + 1
     assert (status == th.OK).all()
     r = rounds.cpu().view(-1, 4).tolist()
     names = [n for n, _, _ in cases]
@@ -223,10 +230,10 @@ def test_pallas_decode_matches_plain(level, card):
              b"\x00" * 5000, b"q", gen(200_000, seed=2, proba=0.7)]
     for parts in (datas, [chain]):
         batch = split_streams([runtime.compress(d, level) for d in parts])
-        before = tld.lz_decode.launches
+        before = count("lz_decode.launches")
         out, lens = tpd.decode_batch_pallas(batch)
         torch.cuda.synchronize()
-        assert tld.lz_decode.launches == before + 1
+        assert count("lz_decode.launches") == before + 1
         p_out, p_lens = tpd.decode_batch_pallas(batch, device="cpu")
         assert torch.equal(lens.cpu(), p_lens)
         k, p = out.cpu().numpy(), p_out.numpy()
@@ -254,9 +261,9 @@ def test_lane_huf_matches_huf128_and_native(card):
         torch.tensor([2.0 ** -k for k in range(13)]), 30_000, True,
         generator=rng)).tolist())
     blobs += [(tablelog12_blob(data12), len(data12)), (b"\x41", 100)]
-    before = th.huf_decode.launches
+    before = count("huf_decode.launches")
     got = tlh.huf_decompress_lanes(blobs)
-    assert th.huf_decode.launches == before + 1
+    assert count("huf_decode.launches") == before + 1
     assert got == th.huf_decompress_128(blobs)
     assert got == tlh.huf_decompress_lanes(blobs, device="cpu")
     assert got[:-1] == [runtime.huf_decompress(b, n) for b, n in blobs[:-1]]
@@ -270,10 +277,10 @@ def _plain_equal(streams, card, datas=None):
     staged batch: equal statuses, lengths and (for OK chains) bytes.
     Returns (kernel status, block_len, meta)."""
     args = tld.stage_batch(split_streams(streams), card)
-    before = tld.lz_decode.launches
+    before = count("lz_decode.launches")
     out, lens, status, meta = tld.lz_decode_meta(**args)
     torch.cuda.synchronize()
-    assert tld.lz_decode.launches == before + 1
+    assert count("lz_decode.launches") == before + 1
     p = tld.lz_decode_plain(**args)
     assert torch.equal(status, p[2]) and torch.equal(lens, p[1])
     ok = (status == tld.OK).cpu().tolist()
@@ -364,9 +371,9 @@ def test_linked_frame_on_the_card(card):
     call to the input, equal to the plain route."""
     data = text_like(700_000, seed=9) + gen(300_000, seed=10, proba=0.6)
     frame = tframe.linked_frame(runtime.compress(data, 21), data, 2)
-    before = tld.lz_decode.launches
+    before = count("lz_decode.launches")
     assert tframe.decompress_frame(frame) == data
-    assert tld.lz_decode.launches == before + 1
+    assert count("lz_decode.launches") == before + 1
     assert tframe.decompress_frame(frame, device="cpu") == data
     assert tframe.decompress_frames(frame + frame) == data + data
 
@@ -384,9 +391,9 @@ def test_kernel_launches_follow_the_chains(level, card):
     singles = [runtime.compress(data[i:i + (1 << 17)], level)
                for i in range(0, len(data), 1 << 17)]
     for streams, want in ((singles + [alone], 2), (singles + [s], 5)):
-        before = tld.lz_decode.kernel_launches
+        before = count("lz_decode.kernel_launches")
         status, _, meta = _plain_equal(streams, card)
-        assert tld.lz_decode.kernel_launches == before + want
+        assert count("lz_decode.kernel_launches") == before + want
         assert (status[:-1] == tld.OK).all()
     assert status[-1] == tld.OK and (meta[:, tld.META_ROUNDS] > 0).any()
     status, _, meta = _plain_equal(singles + [alone], card)
@@ -417,8 +424,8 @@ def _encode_against_plain(blocks, cfg, card):
     against their plain versions on the same inputs, launches counted.
     Returns the kernel's token arrays."""
     data, lens = te.pack_blocks(blocks, cfg, card)
-    before = (te.match_find.launches, te.chain_walk.launches,
-              te.parse_tokens.launches)
+    before = (count("match_find.launches"), count("chain_walk.launches"),
+              count("parse_tokens.launches"))
     maps = te.match_find(data, lens, cfg)
     torch.cuda.synchronize()
     assert torch.equal(maps, te.match_find_plain(data, lens, cfg))
@@ -436,8 +443,8 @@ def _encode_against_plain(blocks, cfg, card):
     want = te.token_arrays(ptok, pcounts)
     for g, w in zip(got, want):
         assert all(np.array_equal(a, b) for a, b in zip(g, w))
-    assert (te.match_find.launches, te.chain_walk.launches,
-            te.parse_tokens.launches) == (before[0] + 1,
+    assert (count("match_find.launches"), count("chain_walk.launches"),
+            count("parse_tokens.launches")) == (before[0] + 1,
                                           before[1] + bool(cfg.chain),
                                           before[2] + 1)
     return got
@@ -551,10 +558,10 @@ def test_huf_pack_matches_plain(card):
     the blobs of huf_compress_batch on the card equal the native Huff0's."""
     streams, plan = _huf_plan()
     args = plan.stage(card)
-    before = teh.huf_pack.launches
+    before = count("huf_pack.launches")
     k = teh.huf_pack(**args)
     torch.cuda.synchronize()
-    assert teh.huf_pack.launches == before + 1
+    assert count("huf_pack.launches") == before + 1
     p = teh.huf_pack_plain(**args)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
@@ -600,11 +607,12 @@ def test_huf_pack_edge_cases(card):
     profiling instance gives the same outputs and a row per segment: one
     round up to PACK_WHOLE symbols, else ceil(len / PACK_ROUND), where no
     code is missing; zeros for a row out of bounds."""
-    before = teh.huf_pack.launches, teh.huf_pack.kernel_launches
+    before = count("huf_pack.launches"), count("huf_pack.kernel_launches")
     r = huf_pack_against_plain(card)
     assert r["cases"] == list(HUF_PACK_CASES) and r["max_abs_err"] == 0
-    assert teh.huf_pack.launches == before[0] + len(HUF_PACK_CASES)
-    assert teh.huf_pack.kernel_launches == before[1] + 2 * len(HUF_PACK_CASES)
+    assert count("huf_pack.launches") == before[0] + len(HUF_PACK_CASES)
+    assert count("huf_pack.kernel_launches") == \
+        before[1] + 2 * len(HUF_PACK_CASES)
     for name, (data, segs, tables, n_words), expect in huf_pack_cases():
         args = [t.to(card) for t in (data, segs, tables)] + [n_words]
         k = teh.huf_pack(*args)
@@ -631,10 +639,10 @@ def test_encode_entropy_routes_equal(level, card):
     blocks = [text_like(131_072, level), gen(131_072, level, proba=0.6),
               rng.integers(0, 9, 131_072, np.uint8).tobytes(), b"",
               gen(5000, level)]
-    before = teh.huf_pack.launches
+    before = count("huf_pack.launches")
     got = te.encode_blocks_lanes(blocks, level)
     torch.cuda.synchronize()
-    assert teh.huf_pack.launches == before + 1
+    assert count("huf_pack.launches") == before + 1
     assert got == te.encode_blocks_lanes(blocks, level, entropy="host")
     assert any(s[1] & 3 == 3 for s in got if len(s) > 1)
     assert [runtime.decompress(s, max(len(d), 1))
@@ -653,11 +661,12 @@ def test_sharded_lanes_decode_on_card(level, card):
     datas = [text_like(131_072, level + i) if i % 2 == 0
              else gen(131_072, level + i, proba=0.6) for i in range(7)]
     streams = [runtime.compress(d, level) for d in datas]
-    before = tld.lz_decode.launches, th.huf_decode.launches
+    before = count("lz_decode.launches"), count("huf_decode.launches")
     got = pipeline.decode_streams_sharded_lanes(streams, ["cuda:0"] * 3)
     torch.cuda.synchronize()
-    assert tld.lz_decode.launches == before[0] + 3
-    assert th.huf_decode.launches == before[1] + (3 if level >= 30 else 0)
+    assert count("lz_decode.launches") == before[0] + 3
+    assert count("huf_decode.launches") == \
+        before[1] + (3 if level >= 30 else 0)
     assert got == tld.decompress_lanes(streams) == datas
 
 
@@ -709,12 +718,12 @@ def test_encode_blocks_sharded_on_card(level, card):
     shard."""
     blocks = [gen(131_072 - 7 * i, level + i, proba=0.6) for i in range(5)]
     blocks += [text_like(131_072, 3), b"", b"abc"]
-    before = te.match_find.launches, te.parse_tokens.launches
+    before = count("match_find.launches"), count("parse_tokens.launches")
     got = pipeline.encode_blocks_sharded(blocks, level,
                                          devices=["cuda:0"] * 3)
     torch.cuda.synchronize()
-    assert te.match_find.launches == before[0] + 3
-    assert te.parse_tokens.launches == before[1] + 3
+    assert count("match_find.launches") == before[0] + 3
+    assert count("parse_tokens.launches") == before[1] + 3
     assert got == te.encode_blocks_lanes(blocks, level)
     assert tld.decompress_lanes(got) == blocks
 
@@ -730,9 +739,9 @@ def test_oracle_streams_decode_on_card(level, card):
     n = 3000 if is_optimal(level) else 40_000
     datas = [gen(n, seed=level, proba=0.6), text_like(n, level)]
     streams = [block_encode.compress(d, level) for d in datas]
-    before = tld.lz_decode.launches
+    before = count("lz_decode.launches")
     assert tld.decompress_lanes(streams) == datas
-    assert tld.lz_decode.launches == before + 1
+    assert count("lz_decode.launches") == before + 1
     assert [api.decompress(s) for s in streams] == datas
 
 
@@ -750,7 +759,7 @@ def test_frame_decoder_on_card(card):
     info = tframe.parse_frame_header(frame)
     blocks = tframe._frame_blocks(frame, info.header_size)[0]
     dec = tframe.FrameDecoder()
-    before = tld.lz_decode.launches
+    before = count("lz_decode.launches")
     out, p = [dec.update(frame[:info.header_size])], info.header_size
     for stored, blob in blocks:
         out.append(dec.update(frame[p:p + 4 + len(blob)]))
@@ -758,7 +767,7 @@ def test_frame_decoder_on_card(card):
     out.append(dec.update(frame[p:]))
     torch.cuda.synchronize()
     assert b"".join(out) == data == tframe.decompress_frame(frame)
-    assert tld.lz_decode.launches == before + 1 + len(blocks)
+    assert count("lz_decode.launches") == before + 1 + len(blocks)
     assert dec.restaged == [k * (256 << 10) for k in range(len(blocks))]
     assert dec.finished
     dec = tframe.FrameDecoder()

@@ -144,16 +144,18 @@ def test_mixed_family_batch_raises():
 
 def test_profiling_trace_and_stages(tmp_path):
     """utils/profiling.py: a torch.profiler trace of a decode step written
-    to the directory, and the stage timers' calls."""
+    to the directory with the step's span in it, the span recorded while
+    the profiler ran (and not after it), and the report of the spans."""
     profiling.reset()
     s = runtime.compress(gen(5000, 3), 12)
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.stage("decode"), profiling.annotate("decode"):
+        with profiling.span("decode", "host"):
             P.decompress_xla(s, 5000, device="cpu")
-    with profiling.stage("decode"):
+    with profiling.span("decode", "host"):
         pass
     assert (tmp_path / "trace.json").stat().st_size > 0
-    assert any(e.key == "decode" for e in prof.key_averages())
-    assert len(profiling.stages()["decode"]) == 2
-    assert "decode" in profiling.report(reset=True)
-    assert profiling.stages() == {}
+    assert any(e.key == "lizard.decode" for e in prof.key_averages())
+    roots = [r for r in profiling.records() if r.parent is None]
+    assert [r.name for r in roots] == ["decode"]
+    assert "decode" in profiling.report(reset_after=True)
+    assert profiling.records() == []

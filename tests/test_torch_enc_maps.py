@@ -14,6 +14,7 @@ import torch
 import lizard_tpu.ops.enc_lanes as J
 from lizard_tpu.utils.datagen import gen, text_like
 import lizard_tpu_torch.ops.enc_lanes as P
+from lizard_tpu_torch.utils import profiling
 from tests.test_enc_lanes import CFG, FAR_CFG, _mk_blocks, _mk_far_blocks
 from tests.torch_cases import chain_tail_maps, match_edge_blocks
 
@@ -279,8 +280,9 @@ def test_cpu_tensors_take_the_plain_versions():
     nothing; the results equal the plain versions'."""
     cfg = port_cfg(dataclasses.replace(CFG, chain=2, lazy=1))
     data, lens = P.pack_blocks(_mk_blocks(2)[:3], cfg)
-    before = (P.match_find.launches, P.chain_walk.launches,
-              P.parse_tokens.launches)
+    names = ("match_find.launches", "chain_walk.launches",
+             "parse_tokens.launches")
+    before = [profiling.counters()[n] for n in names]
     maps = P.match_find(data, lens, cfg)
     assert torch.equal(maps, P.match_find_plain(data, lens, cfg))
     won = P.chain_walk(data, lens, maps, cfg)
@@ -289,5 +291,4 @@ def test_cpu_tensors_take_the_plain_versions():
     tok, cnt = P.parse_tokens(data, lens, won, pcfg)
     ptok, pcnt = P.parse_tokens_plain(data, lens, won, pcfg)
     assert torch.equal(cnt, pcnt) and torch.equal(tok, ptok)
-    assert (P.match_find.launches, P.chain_walk.launches,
-            P.parse_tokens.launches) == before
+    assert [profiling.counters()[n] for n in names] == before
