@@ -10,7 +10,6 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
 import lizard_tpu.cli as jcli
 import lizard_tpu.tools.datagen_cli as jdatagen
@@ -19,18 +18,9 @@ from lizard_tpu.utils.datagen import gen
 from lizard_tpu_torch import cli
 from lizard_tpu_torch.frame import compress_frame, decompress_frame
 from lizard_tpu_torch.tools import datagen_cli, fullbench
+from tests.torch_cases import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

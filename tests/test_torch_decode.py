@@ -17,18 +17,9 @@ from lizard_tpu_torch.ops import decode as P
 from lizard_tpu_torch.ops import split as PS
 from lizard_tpu_torch.utils import profiling
 from lizard_tpu_torch.utils.datagen import gen, text_like
+from tests.torch_cases import one_thread  # noqa: F401
 
 PAD_ROWS = 2        # padded rows (flags_len = -1), as JAX's sharded paths add
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cases():

@@ -29,16 +29,7 @@ from lizard_tpu_torch.frame import compress_frame_lanes, decompress_frame_lanes
 from lizard_tpu_torch.utils import profiling
 from tests.test_torch_enc_maps import port_cfg
 from tests.torch_cases import HUF_PACK_CASES, huf_pack_cases
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_cases import one_thread  # noqa: F401
 
 
 def _fib_stream(n_sym=20, seed=0):

@@ -17,19 +17,9 @@ import lizard_tpu_torch.ops.enc_lanes as P
 from lizard_tpu_torch.utils import profiling
 from tests.test_enc_lanes import CFG, FAR_CFG, _mk_blocks, _mk_far_blocks
 from tests.torch_cases import chain_tail_maps, match_edge_blocks
+from tests.torch_cases import one_thread  # noqa: F401
 
 PORT_FIELDS = [f.name for f in dataclasses.fields(P.EncCfg)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The plain versions run thousands of small tensor operations; with
-    intra-op threads, test workers running side by side starve each other,
-    so this module runs torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg(jcfg) -> P.EncCfg:

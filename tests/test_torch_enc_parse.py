@@ -25,20 +25,10 @@ from lizard_tpu_torch.frame import (compress_frame_fast, compress_frame_lanes,
 from lizard_tpu_torch.ops.lane_decode import decompress_lanes
 from tests.test_enc_lanes import CFG, FAR_CFG, _mk_blocks, _mk_far_blocks
 from tests.torch_cases import parse_edge_blocks
+from tests.torch_cases import one_thread  # noqa: F401
 from tests.test_torch_enc_maps import SWEEP, port_cfg, sweep_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The plain versions run thousands of small tensor operations; with
-    intra-op threads, test workers running side by side starve each other,
-    so this module runs torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tokens_of(blocks, jcfg, dmap):

@@ -4,7 +4,6 @@ codeword family (fastLZ4 11, LIZv1 25 with the far table, fastLZ4 + Huff0
 35). Tolerance 0."""
 
 import pytest
-import torch
 
 import lizard_tpu.ops.enc_lanes as J
 from lizard_tpu.ref.block_decode import decompress as ref_decompress
@@ -12,16 +11,7 @@ import lizard_tpu_torch.ops.enc_lanes as P
 from tests.test_enc_lanes import _mk_blocks, _mk_far_blocks
 from tests.test_torch_enc_maps import port_cfg
 from tests.test_torch_enc_parse import small_cfg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_cases import one_thread  # noqa: F401
 
 
 # levels of the three codeword families, each with a tier that keeps the

@@ -14,16 +14,7 @@ from lizard_tpu_torch import frame as PF
 from lizard_tpu_torch import runtime
 from lizard_tpu_torch.ops import encode_tpu as P
 from lizard_tpu_torch.utils.datagen import gen, text_like
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_cases import one_thread  # noqa: F401
 
 
 def _blocks():

@@ -11,7 +11,6 @@ memory past the 16 MB window, and one decode batch per update and frame
 streaming xxh32 against the specification."""
 
 import pytest
-import torch
 
 import lizard_tpu.frame as jframe
 from lizard_tpu.ref.block_decode import CorruptError as JCorruptError
@@ -24,16 +23,7 @@ from lizard_tpu_torch.format.constants import (
     LIZARDF_BLOCK_SIZES, LIZARDF_BLOCKUNCOMPRESSED_FLAG)
 from lizard_tpu_torch.ops import huf128, lane_decode
 from lizard_tpu_torch.utils.xxh import xxh32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_cases import one_thread  # noqa: F401
 
 
 def _stream_compress(cls, data, chunk, **kw):

@@ -24,6 +24,7 @@ from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops import split as tsplit
 from lizard_tpu_torch.ops.fuse import build_fused_plan, decompress_lanes_fused
+from tests.torch_cases import one_thread  # noqa: F401
 
 FIELDS = tsplit.STREAMS + tsplit.TABLE_FIELDS + ("stream_id",)
 

@@ -18,16 +18,7 @@ from lizard_tpu.ref import huf_encode as jenc
 from lizard_tpu_torch.errors import HufError
 from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ops import lane_huf as tlh
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The plain decode is a loop of small torch operations; with intra-op
-    threads under xdist workers it runs many times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_cases import one_thread  # noqa: F401
 
 
 def _texty(n, seed):

@@ -23,19 +23,10 @@ from lizard_tpu_torch.ops import pallas_decode as tpd
 from lizard_tpu_torch.ops.split import (
     STREAMS, TABLE_FIELDS, from_reference_batch, split_streams)
 from lizard_tpu_torch.utils import profiling
+from tests.torch_cases import one_thread  # noqa: F401
 
 BLOCK = LIZARD_BLOCK_SIZE
 FIELDS = STREAMS + TABLE_FIELDS + ("stream_id",)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The plain decode is a Python loop of small torch operations; with
-    intra-op threads under xdist workers it runs many times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _far_data():

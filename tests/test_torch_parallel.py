@@ -33,18 +33,9 @@ from lizard_tpu_torch.utils.datagen import gen, text_like
 from tests.test_enc_lanes import CFG
 from tests.test_torch_enc_maps import port_cfg
 from tests.torch_cases import global_decode_datas, global_decode_worker
+from tests.torch_cases import one_thread  # noqa: F401
 
 GLOO_TIMEOUT_S = 60
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mesh(k):

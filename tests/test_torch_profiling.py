@@ -19,6 +19,7 @@ from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops.split import split_streams
 from lizard_tpu_torch.utils import profiling
 from lizard_tpu_torch.utils.datagen import gen, text_like
+from tests.torch_cases import one_thread  # noqa: F401
 
 LEVEL = 41
 # each path's spans in the order they open, each with its parent's name
@@ -34,14 +35,6 @@ ENCODE = ["compress_frame", "pack", "match_find", "parse_tokens", "tokens",
           "huf_readback", "huf_finish", "assemble", "xxh32"]
 HOST = {"split", "plan", "answer", "frame_parse", "xxh32", "emit",
         "huf_plan", "huf_finish", "assemble"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

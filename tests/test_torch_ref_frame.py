@@ -17,18 +17,9 @@ from lizard_tpu.utils.xxh import xxh64 as j_xxh64
 from lizard_tpu_torch import api, runtime
 from lizard_tpu_torch import frame as tframe
 from lizard_tpu_torch.utils.xxh import xxh64
+from tests.torch_cases import one_thread  # noqa: F401
 
 DATA = gen(300_000, seed=21, proba=0.6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # (level, block_size_id, block_linked, content_checksum, content_size)

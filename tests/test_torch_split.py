@@ -14,6 +14,7 @@ from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.levels import Codewords
 from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops import split as tsplit
+from tests.torch_cases import one_thread  # noqa: F401
 
 FIELDS = tsplit.STREAMS + tsplit.TABLE_FIELDS + ("stream_id",)
 

@@ -8,7 +8,6 @@ ones' bytes call by call, the 64 KB ring case included; and the one
 difference on purpose, decompress_partial's inner-block early exit."""
 
 import pytest
-import torch
 
 import lizard_tpu.streaming as js
 from lizard_tpu.ref.block_decode import CorruptError as JCorruptError
@@ -19,16 +18,7 @@ from lizard_tpu_torch import streaming as ts
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
 from lizard_tpu_torch.ops import lane_decode
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """As in test_torch_enc_parse.py: torch on one thread, so test workers
-    running side by side do not starve each other."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_cases import one_thread  # noqa: F401
 
 
 def _chunks(data, size):

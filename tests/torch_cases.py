@@ -9,12 +9,14 @@ tests
 (tests/test_torch_cuda.py), the CPU tests that prove the inputs valid
 (tests/test_torch_huf.py, tests/test_torch_enc_parse.py,
 tests/test_torch_enc_maps.py, tests/test_torch_enc_huf.py) and
-chip_smoke.py share them. Imports neither JAX nor pytest.
+chip_smoke.py share them, and the port's test modules its `one_thread`
+fixture. Imports no JAX.
 """
 
 import time
 
 import numpy as np
+import pytest
 import torch
 
 from lizard_tpu_torch.ops import enc_huf as teh
@@ -22,6 +24,19 @@ from lizard_tpu_torch.ops import huf128 as th
 from lizard_tpu_torch.ref import huf_encode as hr
 from lizard_tpu_torch.ref.huf import huf_read_stats
 from lizard_tpu_torch.utils.datagen import gen, text_like
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread in each module that imports this fixture: the
+    plain versions run thousands of small tensor operations, and with
+    intra-op threads, test workers running side by side starve each
+    other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # ------------------------------------ huf_decode: inputs of the lane split
 
