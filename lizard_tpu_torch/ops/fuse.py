@@ -89,7 +89,7 @@ def decode_fused(batch: BlockBatch, plan: HufPlan, device=None,
     if plan.segs.shape[0]:
         huf_status = huf_decode(**plan.stage(dev),
                                 **{k: args[k] for k in STREAMS})
-    result = lz_decode(**args)
+    result = lz_decode(**args, tally=True)
     if huf_status is not None:
         with profiling.span("readback", "device"):
             raise_on_status(huf_status, plan)

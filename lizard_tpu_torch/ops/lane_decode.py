@@ -17,7 +17,11 @@ non-final inner block is short decodes like any other.
 version with the same signature and outputs. A CPU tensor goes to the plain
 version; a CUDA tensor launches the kernels or raises. Its calls and kernel
 launches are counted in utils/profiling.py as "lz_decode.launches" and
-"lz_decode.kernel_launches".
+"lz_decode.kernel_launches"; on either device, the chains of each batch
+as "lz_decode.chains" and their non-first blocks, the blocks that pass 2
+resolves, as "lz_decode.pass2_blocks". While spans record, read_blocks
+also counts what pass 2 did on the card, from lz_decode's tally:
+"lz_decode.deferred_bytes" and "lz_decode.jump_rounds".
 """
 
 import ctypes
@@ -161,7 +165,15 @@ def _launcher():
     return fn
 
 
-def lz_decode(flags, literals, off16, off24, blocks, chains, family):
+def _count_chains(blocks, chains) -> None:
+    """The batch's chains and their non-first blocks (host-known sizes)."""
+    profiling.count("lz_decode.chains", chains.shape[0])
+    profiling.count("lz_decode.pass2_blocks",
+                    max(blocks.shape[0] - chains.shape[0], 0))
+
+
+def lz_decode(flags, literals, off16, off24, blocks, chains, family,
+              tally: bool = False):
     """Decode every chain of a staged batch (see stage_batch).
 
     `chains` rows are chain_table's: disjoint runs of blocks in block
@@ -180,14 +192,34 @@ def lz_decode(flags, literals, off16, off24, blocks, chains, family):
     "lz_decode.launches"). Pass 2's scratch, for the
     non-first blocks of chains only, is 4 bytes per byte of those blocks
     plus 12 bytes per flags byte; a chain has at most MAX_CHAIN_BLOCKS
-    blocks (else ValueError). CPU tensors run lz_decode_plain."""
+    blocks (else ValueError). CPU tensors run lz_decode_plain.
+
+    With tally=True a fourth value follows for read_blocks: pass2_tally
+    of the card's meta, None from the plain version (it keeps no meta).
+    With spans not recording it is None and the call is as without it."""
     _check(flags, literals, off16, off24, blocks, chains, family)
     with profiling.span("lz_decode", "device"):
         if flags.device.type == "cpu":
-            return lz_decode_plain(flags, literals, off16, off24, blocks,
-                                   chains, family)
-        return lz_decode_meta(flags, literals, off16, off24, blocks, chains,
-                              family)[:3]
+            out = lz_decode_plain(flags, literals, off16, off24, blocks,
+                                  chains, family)
+            return (*out, None) if tally else out
+        out, block_len, status, meta = lz_decode_meta(
+            flags, literals, off16, off24, blocks, chains, family)
+        if not tally:
+            return out, block_len, status
+        return out, block_len, status, pass2_tally(meta, chains.shape[0])
+
+
+def pass2_tally(meta, n_chains: int):
+    """What pass 2 did in an lz_decode_meta call, while spans record
+    (profiling.active()) and a chain has a second block: an int64 tensor
+    [deferred bytes, jump rounds] on meta's device, its META_DEFERRED_BYTES
+    and META_ROUNDS columns summed over the blocks by one reduction on the
+    stream, with no copy and no synchronisation. Else None, with no
+    operation at all: without pass 2 both sums are 0."""
+    if not profiling.active() or meta.shape[0] <= n_chains:
+        return None
+    return meta[:, META_DEFERRED_BYTES:].sum(0)     # int32 sums to int64
 
 
 def lz_decode_meta(flags, literals, off16, off24, blocks, chains, family):
@@ -202,6 +234,7 @@ def lz_decode_meta(flags, literals, off16, off24, blocks, chains, family):
     check_chain_blocks(chains, n_blocks)
     if flags.device.type != "cuda":
         raise ValueError(f"lz_decode runs on cuda or cpu, not {flags.device}")
+    _count_chains(blocks, chains)
     dev = flags.device
     out, block_len, status = _outputs(blocks, chains, dev)
     meta = torch.empty((n_blocks, 5), dtype=torch.int32, device=dev)
@@ -281,6 +314,7 @@ def lz_decode_plain(flags, literals, off16, off24, blocks, chains, family):
     lizard_tpu/ref/block_decode.py (stricter only where that oracle would
     read past a stream's end)."""
     _check(flags, literals, off16, off24, blocks, chains, family)
+    _count_chains(blocks, chains)
     dev = flags.device
     out, block_len, status = _outputs(blocks, chains, dev)
     host = {n: t.cpu().numpy().tobytes() for n, t in
@@ -406,11 +440,22 @@ def _decode_block(host, row, family, literals, out, base, op, bend):
     return put_literals(op, lp, iend - lp)
 
 
-def raise_on_status(batch: BlockBatch, chains, status) -> None:
+def raise_on_status(batch: BlockBatch, chains, status, tally=None) -> None:
     """Raise CorruptError naming the stream of the first corrupt chain of
-    an lz_decode result."""
-    profiling.count_bytes("d2h_bytes", status)
-    status = status.cpu()
+    an lz_decode result. A tally of lz_decode (tally=True) comes back in
+    the same copy as the status, and counts "lz_decode.deferred_bytes" and
+    "lz_decode.jump_rounds"."""
+    if tally is not None:
+        both = torch.cat([status, tally.view(torch.int32)])
+        profiling.count_bytes("d2h_bytes", both)
+        both = both.cpu()
+        status, tally = both[:status.numel()], both[status.numel():]
+        deferred, rounds = tally.clone().view(torch.int64).tolist()
+        profiling.count("lz_decode.deferred_bytes", deferred)
+        profiling.count("lz_decode.jump_rounds", rounds)
+    else:
+        profiling.count_bytes("d2h_bytes", status)
+        status = status.cpu()
     bad = torch.nonzero(status != OK).flatten()
     if bad.numel():
         c = int(bad[0])
@@ -419,17 +464,18 @@ def raise_on_status(batch: BlockBatch, chains, status) -> None:
 
 
 def read_blocks(batch: BlockBatch, args: dict, out, block_len,
-                status, first: int = 0) -> list[bytes]:
+                status, tally=None, first: int = 0) -> list[bytes]:
     """The decoded bytes of the blocks from index `first` on of an
-    lz_decode result, in batch order: one copy back to the host, of the
-    span of `out` those blocks cover (blocks before `first`, such as a
-    history that heads a chain, are not copied). Raises CorruptError on a
-    corrupt chain. `args` is the staged batch the result came from."""
+    lz_decode result (with its tally, if it has one), in batch order: one
+    copy back to the host, of the span of `out` those blocks cover (blocks
+    before `first`, such as a history that heads a chain, are not copied).
+    Raises CorruptError on a corrupt chain. `args` is the staged batch the
+    result came from."""
     with profiling.span("readback", "device"):
         chains = args["chains"]
         profiling.count_bytes("d2h_bytes", chains, block_len)
         chains = chains.cpu()
-        raise_on_status(batch, chains, status)
+        raise_on_status(batch, chains, status, tally)
         lens = block_len.cpu().tolist()
         spans = []                              # (output position, length)
         for c0, count, base in chains.tolist():
@@ -454,7 +500,8 @@ def decode_batch_lanes(batch: BlockBatch, device=None,
     from index `first` on, in batch order (read_blocks). Raises
     CorruptError on a corrupt chain."""
     args = stage_batch(batch, resolve_device(device))
-    return read_blocks(batch, args, *lz_decode(**args), first=first)
+    return read_blocks(batch, args, *lz_decode(**args, tally=True),
+                       first=first)
 
 
 def join_streams(batch: BlockBatch, blocks: list[bytes],

@@ -135,12 +135,16 @@ class _Span:
         return False
 
 
+def active() -> bool:
+    """Whether spans record: a torch profiler runs, or inside recording()."""
+    return bool(_recording or _autograd_profiler._is_profiler_enabled)
+
+
 def span(name: str, kind: str):
     """A context manager that records the block as span `name` of `kind`
     ("host": pure host work; "device": issues copies or kernels or waits
-    for them) while a torch profiler runs or inside recording(); else the
-    shared no-op."""
-    if _recording or _autograd_profiler._is_profiler_enabled:
+    for them) while spans record (active()); else the shared no-op."""
+    if active():
         return _Span(name, kind)
     return _OFF
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from h100_bench import frames
 from lizard_tpu_torch import api
 from lizard_tpu_torch import frame as tframe
 from lizard_tpu_torch import runtime
@@ -399,6 +400,44 @@ def test_kernel_launches_follow_the_chains(level, card):
     status, _, meta = _plain_equal(singles + [alone], card)
     assert status[-1] == tld.ERR_OFFSET
     assert (meta[:, tld.META_ROUNDS] == 0).all()
+
+
+def test_chained_frame_tallies_pass2_while_recording(card):
+    """A -46 frame of 1 MiB blocks (each a chain of up to 8 inner blocks,
+    as a -B4 block is of 32) decodes on the card in one lz_decode call of
+    five kernels. While spans record, its readback also counts pass 2's
+    deferred bytes (> 0) and jump rounds (>= 1), 16 bytes more; with
+    recording off both stay 0 and the call copies back exactly what the
+    plain route does, whose readback this path has always had. The bytes
+    are the input's either way."""
+    data = text_like(1_200_000, seed=12) + gen(1_200_000, seed=13, proba=0.6)
+    frame = frames.write_frame(data, 46, 3)
+    block = 1 << 20
+    chains = -(-len(data) // block)
+    pass2 = sum(-(-min(block, len(data) - k * block) // (1 << 17))
+                for k in range(chains)) - chains
+    profiling.reset()
+    assert tframe.decompress_frame(frame, device="cpu") == data
+    d2h_plain = count("d2h_bytes")
+    profiling.reset()
+    off = tframe.decompress_frame(frame)
+    n_off = profiling.counters()
+    profiling.reset()
+    with profiling.recording():
+        on = tframe.decompress_frame(frame)
+    n_on = profiling.counters()
+    assert on == off == data
+    for n in (n_off, n_on):
+        assert n["lz_decode.launches"] == 1
+        assert n["lz_decode.kernel_launches"] == 5
+        assert n["lz_decode.chains"] == chains
+        assert n["lz_decode.pass2_blocks"] == pass2
+    assert n_off["lz_decode.deferred_bytes"] == 0
+    assert n_off["lz_decode.jump_rounds"] == 0
+    assert n_off["d2h_bytes"] == d2h_plain
+    assert n_on["lz_decode.deferred_bytes"] > 0
+    assert n_on["lz_decode.jump_rounds"] >= 1
+    assert n_on["d2h_bytes"] == d2h_plain + 16
 
 
 # ------------------------------------------------------- device encoder

@@ -18,14 +18,16 @@ h100_bench/tracing.py does (CPU and CUDA activities) and checks in the
 exported Chrome trace that every CUDA runtime call that issued a device
 operation lies inside a `lizard.*` span of kind "device" on its thread.
 It prints one JSON line: the calls inside and outside such spans, by the
-innermost span around each, and the annotations beside the records.
-Exits 1 if a call lies outside.
+innermost span around each, the kernels launched in each span (by
+function name), and the annotations beside the records. Exits 1 if a call
+lies outside.
 """
 
 import argparse
 import collections
 import json
 import os
+import re
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +62,14 @@ def _inside(events, tid, t, kinds):
         return None
     name = best["name"][len("lizard."):]
     return name, kinds.get(name)
+
+
+def _kernel(name: str) -> str:
+    """A kernel's function name, without namespaces, template arguments or
+    argument list ("(anonymous namespace)::link(long const*, ...)" ->
+    "link")."""
+    name = name.replace("(anonymous namespace)::", "")
+    return re.split(r"[(<]", name, 1)[0].split("::")[-1].split()[-1]
 
 
 def check(argv) -> int:
@@ -100,6 +110,7 @@ def check(argv) -> int:
     spans = collections.defaultdict(list)
     annotations = 0
     device_corr = set()
+    kernel_of = {}
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -109,7 +120,11 @@ def check(argv) -> int:
             annotations += 1
         elif e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             device_corr.add(e.get("args", {}).get("correlation"))
+            if e["cat"] == "kernel":
+                kernel_of[e.get("args", {}).get("correlation")] = \
+                    _kernel(e["name"])
     by_span = collections.Counter()
+    kernels = collections.Counter()
     outside = collections.Counter()
     for e in events:
         if (e.get("ph") != "X"
@@ -121,11 +136,15 @@ def check(argv) -> int:
             outside[f"{e['name']} in {at[0] if at else 'no span'}"] += 1
         else:
             by_span[f"{e['name']} in {at[0]}"] += 1
+            corr = e.get("args", {}).get("correlation")
+            if corr in kernel_of:
+                kernels[f"{kernel_of[corr]} in {at[0]}"] += 1
     print(json.dumps({"workload": args.workload, "requests": args.requests,
                       "records": len(recs), "annotations": annotations,
                       "calls_in_device_spans": sum(by_span.values()),
                       "calls_outside": sum(outside.values()),
                       "by_span": dict(sorted(by_span.items())),
+                      "kernels": dict(sorted(kernels.items())),
                       "outside": dict(sorted(outside.items()))}),
           flush=True)
     return 1 if outside or annotations != len(recs) else 0
