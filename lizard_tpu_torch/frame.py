@@ -41,16 +41,17 @@ from lizard_tpu_torch.format.constants import (
     LIZARDF_MAGIC,
     LIZARDF_MAGIC_SKIPPABLE_START,
 )
-from lizard_tpu_torch.format.levels import LEVELS, Codewords, validate_level
+from lizard_tpu_torch.format.levels import LEVELS, validate_level
 from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.ops.encode_tpu import encode_streams_tpu
-from lizard_tpu_torch.ops.fuse import decode_fused, plan_split
+from lizard_tpu_torch.ops.fuse import decode_fused
+from lizard_tpu_torch.ops.host_plan import split_plan
 from lizard_tpu_torch.ops.lane_decode import (
     decode_batch_lanes, decompress_lanes)
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
 from lizard_tpu_torch.ops.split import (
-    finalize, inner_block_spans, new_accumulator, split_stored, split_stream)
+    finalize, inner_block_spans, new_accumulator, split_blocks)
 from lizard_tpu_torch.ref import block_decode
 from lizard_tpu_torch.ref.block_encode import DICT, Ctx, Tables, compress_range
 from lizard_tpu_torch.runtime import XXH32, xxh32
@@ -455,32 +456,24 @@ def decode_blocks(blocks, linked: bool, dev, entropy: str = "gpu",
     if history and not linked:
         raise ValueError("a history heads a linked chain only")
     head = [(True, history)] if history else []
+    items = head + list(blocks)
+    sids = [0 if linked else i for i in range(len(items))]
     skip = -(-len(history) // LIZARD_BLOCK_SIZE)    # the history's blocks
-    spans = []                  # (first inner block, end, stored)
-
-    def split(acc, hd):
-        family = None
-        for i, (stored, blob) in enumerate(head + list(blocks)):
-            first = len(acc["stream_id"])
-            sid = 0 if linked else i
-            if stored:
-                split_stored(blob, acc, sid)
-            else:
-                f = split_stream(blob, acc, sid, hd)
-                family = family or f
-            spans.append((first, len(acc["stream_id"]), stored))
-        return family or Codewords.LZ4
     if entropy == "gpu":
-        batch, plan = plan_split(split)
+        batch, plan, ends = split_plan([blob for _, blob in items], sids,
+                                       [stored for stored, _ in items],
+                                       check_family=False)
         decoded = decode_fused(batch, plan, dev, first=skip)
     else:
         acc = new_accumulator()
         with profiling.span("split", "host"):
-            batch = finalize(acc, split(acc, None))
+            family, ends = split_blocks(items, sids, acc)
+            batch = finalize(acc, family)
         decoded = decode_batch_lanes(batch, device=dev, first=skip)
     with profiling.span("answer", "host"):
         parts = []
-        for first, end, stored in spans[len(head):]:
+        for (stored, _), first, end in list(zip(items, [0] + ends,
+                                                ends))[len(head):]:
             part = b"".join(decoded[first - skip:end - skip])
             if not stored and max_out is not None and len(part) > max_out:
                 raise CorruptError("output exceeds max_out")

@@ -6,8 +6,10 @@ Flow (decompress_lanes_fused):
   host:   split the streams without entropy-decoding them: every
           Huffman-coded stream is a hole of `orig` zero bytes in its flat
           stream, at its block's offset for that stream; plan the Huff0
-          blobs (ops/huf128.py::prepare_huf128) with each hole as the
-          destination, and fill RLE and stored blobs' holes
+          blobs with each hole as the destination, and fill RLE and
+          stored blobs' holes: one native pass over the batch
+          (ops/host_plan.py), whose plain version is plan_split_plain
+          (ops/split.py, then ops/huf128.py::prepare_huf128)
   device: stage the batch; huf_decode fills the holes in the staged
           flags/literals/off16/off24 tensors; lz_decode reads them, on
           the same stream; one copy of the output back
@@ -23,26 +25,32 @@ import numpy as np
 import torch
 
 from lizard_tpu_torch.device import resolve_device
+from lizard_tpu_torch.ops.host_plan import split_plan
 from lizard_tpu_torch.ops.huf128 import (
     HufPlan, huf_decode, prepare_huf128, raise_on_status)
 from lizard_tpu_torch.ops.lane_decode import (
     join_streams, lz_decode, read_blocks, stage_batch)
 from lizard_tpu_torch.ops.split import (
-    STREAMS, TABLE_FIELDS, BlockBatch, finalize, new_accumulator, split_into)
+    STREAMS, TABLE_FIELDS, BlockBatch, finalize, new_accumulator)
 from lizard_tpu_torch.utils import profiling
 
 
 def build_fused_plan(streams: list[bytes]) -> tuple[BlockBatch, HufPlan]:
     """Split `streams` with a hole for every Huffman-coded stream, and plan
     the Huff0 decode of every blob into its hole. RLE and stored blobs are
-    written into their holes here; the batch and plan are on the CPU."""
-    return plan_split(lambda acc, hd: split_into(streams, acc, hd))
+    written into their holes here; the batch and plan are on the CPU. One
+    native pass (ops/host_plan.py::split_plan); its plain version is
+    plan_split_plain over split.split_into."""
+    batch, plan, _ = split_plan(streams, range(len(streams)))
+    return batch, plan
 
 
-def plan_split(split) -> tuple[BlockBatch, HufPlan]:
-    """build_fused_plan over any split: `split(acc, hd)` fills the
-    accumulator `acc` (ops/split.py), passing `hd` for every Huffman-coded
-    stream, and returns the batch's codeword family."""
+def plan_split_plain(split) -> tuple[BlockBatch, HufPlan]:
+    """The plain version of ops/host_plan.py::split_plan, over any split:
+    `split(acc, hd)` fills the accumulator `acc` (ops/split.py), passing
+    `hd` for every Huffman-coded stream, and returns the batch's codeword
+    family; prepare_huf128 then plans the blobs and `fills` is written
+    into the holes here."""
     acc = new_accumulator()
     pend = []                                   # (blob, orig, kind, block)
 
@@ -80,7 +88,7 @@ def decompress_lanes_fused(streams: list[bytes], device=None) -> list[bytes]:
 def decode_fused(batch: BlockBatch, plan: HufPlan, device=None,
                  first: int = 0) -> list[bytes]:
     """The decoded bytes of the blocks from index `first` on of a planned
-    batch (plan_split), in batch order: huf_decode (when the plan has
+    batch (split_plan), in batch order: huf_decode (when the plan has
     segments) then lz_decode on one stream of `device`, and one copy back
     (lane_decode.read_blocks)."""
     dev = resolve_device(device)

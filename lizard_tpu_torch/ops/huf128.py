@@ -24,6 +24,7 @@ are counted in utils/profiling.py as "huf_decode.launches".
 """
 
 import ctypes
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,14 +57,16 @@ class HufPlan:
 
     Every blob that needs the kernel gives four consecutive rows of
     `segs` (its segments, in order) and one decode table; `names[t]`
-    names the blob of table t in error messages. RLE and stored blobs
-    are in `fills` as (dst_kind, dst_off, bytes): the host writes them."""
+    names the blob of table t in error messages (a list, or a sequence
+    that formats each name when read: ops/host_plan.py). RLE and stored
+    blobs are in `fills` as (dst_kind, dst_off, bytes): the host writes
+    them (empty where the plan's maker wrote them already)."""
     data: torch.Tensor         # uint8 [n_bytes]: the segments' bytes
     segs: torch.Tensor         # int64 (n_seg, 6): src_off, src_len,
                                # dst_kind, dst_off, n_out, table_id
     tables: torch.Tensor       # uint16 (n_tables, 4096): sym | nbits << 8
     table_log: torch.Tensor    # int32 (n_tables,)
-    names: list[str]
+    names: Sequence[str]
     fills: list[tuple[int, int, bytes]]
 
     def stage(self, device) -> dict:

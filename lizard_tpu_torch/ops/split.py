@@ -274,6 +274,26 @@ def split_into(streams: list[bytes], acc: dict, hd=None) -> Codewords:
     return family or Codewords.LZ4
 
 
+def split_blocks(blocks, stream_ids, acc: dict, hd=None
+                 ) -> tuple[Codewords, list[int]]:
+    """Split frame blocks into the accumulator `acc`: block i, a (stored,
+    payload) pair, takes stream id stream_ids[i], as literal-only inner
+    blocks where it is stored (split_stored), else as a compressed stream
+    (split_stream, `hd` as there). A frame may mix codeword families, so
+    nothing is refused for that. Returns the batch's family (that of the
+    first compressed block; LZ4 if none) and the end of each frame block's
+    inner blocks in `acc`."""
+    family, ends = None, []
+    for (stored, blob), sid in zip(blocks, stream_ids):
+        if stored:
+            split_stored(blob, acc, sid)
+        else:
+            f = split_stream(blob, acc, sid, hd)
+            family = family or f
+        ends.append(len(acc["stream_id"]))
+    return family or Codewords.LZ4, ends
+
+
 def split_streams(streams: list[bytes], entropy: str = "host",
                   device=None) -> BlockBatch:
     """Split multiple independent compressed streams into one batch.

@@ -16,10 +16,12 @@ library. There is no pure-Python fallback:
 without the library every call raises RuntimeError, and `available()`
 returns False.
 
-`XXH32` is the port's own host code: a streaming xxh32 over chunks
-(csrc/xxh32_stream.cpp, built the same way with g++ into
-build/lizard_tpu_torch/, under that directory's lock), for the incremental
-frame layer, whose checksums see the content a piece at a time.
+`own_library` builds the port's own host sources the same way, with g++
+into build/lizard_tpu_torch/ under that directory's lock:
+csrc/xxh32_stream.cpp (`XXH32`, a streaming xxh32 over chunks, for the
+incremental frame layer, whose checksums see the content a piece at a
+time) and csrc/split_plan.cpp (the decoder's host split and Huff0 plan,
+ops/host_plan.py).
 """
 
 import ctypes
@@ -129,21 +131,25 @@ def xxh64(data: bytes, seed: int = 0) -> int:
     return _load().ltpu_xxh64(data, len(data), seed)
 
 
-_STREAM_SRC = os.path.join(_ROOT, "lizard_tpu_torch", "csrc",
-                           "xxh32_stream.cpp")
+def own_library(name: str) -> ctypes.CDLL:
+    """The library of the port's host source csrc/<name>.cpp, built first
+    if missing into build/lizard_tpu_torch/; its file name carries a hash
+    of the source, so an edited source builds anew."""
+    src = os.path.join(_ROOT, "lizard_tpu_torch", "csrc", f"{name}.cpp")
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read()).hexdigest()[:16]
+    return _build_and_open(src, os.path.join(
+        _ROOT, "build", "lizard_tpu_torch", f"lib{name}-{h}.so"))
+
+
 _stream_lib = None
 
 
 def _load_stream() -> ctypes.CDLL:
-    """The library of csrc/xxh32_stream.cpp, built first if missing; its
-    file name carries a hash of the source, so an edited source builds
-    anew."""
+    """The library of csrc/xxh32_stream.cpp (own_library)."""
     global _stream_lib
     if _stream_lib is None:
-        with open(_STREAM_SRC, "rb") as f:
-            h = hashlib.sha256(f.read()).hexdigest()[:16]
-        lib = _build_and_open(_STREAM_SRC, os.path.join(
-            _ROOT, "build", "lizard_tpu_torch", f"libxxh32_stream-{h}.so"))
+        lib = own_library("xxh32_stream")
         lib.ltt_xxh32_state_size.restype = ctypes.c_int
         lib.ltt_xxh32_reset.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
         lib.ltt_xxh32_update.argtypes = [ctypes.c_void_p, ctypes.c_char_p,

@@ -23,8 +23,10 @@ Counters (`count`) are always on: host integers, one dict add each under
 a lock (the sharded paths count from threads). The
 port counts the bytes each staging call hands to a device ("h2d_bytes")
 and each readback takes from it ("d2h_bytes"), from host-known sizes
-whatever the device, and each kernel wrapper's calls ("<kernel>.launches")
-and kernels launched ("<kernel>.kernel_launches").
+whatever the device, each kernel wrapper's calls ("<kernel>.launches")
+and kernels launched ("<kernel>.kernel_launches"), and the inner blocks
+and Huff0 blobs of each batch that the native host split and plan handled
+("split.native_blocks", "plan.native_blobs"; ops/host_plan.py).
 
 `trace(logdir)` writes a Chrome trace of its block; `report()` prints the
 spans' totals and the counters, for operators.
