@@ -18,11 +18,10 @@ on the card, and checks every result against the input bytes:
    that pass 1 deferred / decoded bytes) and the most pointer-jumping
    rounds of a block in pass 2, end-to-end time, and the HBM floor;
 4. Huffman full-size decode: the same corpus at levels 35 and 41, decoded
-   by decompress_lanes with the default entropy route (huf_decode then
-   lz_decode, no host round trip between them); both kernels' times and
-   floors, the steps of the path, the host-entropy route beside it, and
-   huf_decode's synchronisation rounds per segment (the share that needed
-   the serial fallback);
+   by decompress_lanes (huf_decode then lz_decode, no host round trip
+   between them); both kernels' times and floors, the steps of the path,
+   and huf_decode's synchronisation rounds per segment (the share that
+   needed the serial fallback);
 5. kernel against plain: lz_decode against lz_decode_plain on the card, on
    the first 32 streams of the batch of levels 10 and 21, and at 35 and 41
    huf_decode against huf_decode_plain and lz_decode against
@@ -77,7 +76,7 @@ on the card, and checks every result against the input bytes:
 14. single-stream decode: decompress_pallas on one 8 MB stream (64
    chained inner blocks, one chain: 64 CTAs in pass 1, the cross-block
    matches deferred to pass 2) at levels 10, 21 (off24 matches asserted)
-   and 41 (Huff0 in the host split); equal to the input and the native
+   and 41 (one huf_decode launch first); equal to the input and the native
    decoder; at 21 lz_decode against lz_decode_plain on that single chain;
    13 and 14 report lz_decode as phase 3 does;
 15. batch Huff0 decode: huf_decompress_lanes (ops/lane_huf.py, one
@@ -958,7 +957,7 @@ def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
                   data: bytes, smi: str) -> dict:
     """decompress_pallas on one stream of 64 chained inner blocks (one
     chain: 64 CTAs of lz_decode's pass 1): exactly one lz_decode call and, at
-    levels 30-49, no huf_decode launch (Huff0 runs in the host split);
+    levels 30-49, one huf_decode launch before it (none below);
     equal to the input and to the native decoder; at level 21 off24
     matches present and lz_decode held against lz_decode_plain on this
     single chain. Times: decompress_pallas on the host clock, the kernel
@@ -976,7 +975,7 @@ def pallas_stream(tld, th, tpd, runtime, split_streams, level: int,
     torch.cuda.synchronize()
     launches = counted("lz_decode.launches")
     kernel_launches = counted("lz_decode.kernel_launches")
-    if launches != 1 or counted("huf_decode.launches") != 0:
+    if launches != 1 or counted("huf_decode.launches") != (level >= 30):
         raise AssertionError(f"pallas_stream level {level}: launches "
                              f"lz {launches}, huf "
                              f"{counted('huf_decode.launches')}")
@@ -1990,15 +1989,15 @@ def main() -> int:
     emit("decode_again", level=MAIN_LEVELS[0],
          e2e_ms=statistics.median(again), e2e_runs_ms=again)
 
-    # 4. Huffman full-size decode at levels 35 and 41: the default entropy
-    # route, huf_decode then lz_decode on the card
+    # 4. Huffman full-size decode at levels 35 and 41: huf_decode then
+    # lz_decode on the card
     huf_launches = 0
     huf_timing = {}
     for level in HUF_LEVELS:
         streams = [runtime.compress(c, level) for c in chunks]
         comp = sum(map(len, streams))
         reset_counts()
-        outs = decompress_lanes(streams)          # the card, entropy="gpu"
+        outs = decompress_lanes(streams)          # the card
         torch.cuda.synchronize()
         launches = (counted("huf_decode.launches"),
                     counted("lz_decode.launches"))
@@ -2011,8 +2010,6 @@ def main() -> int:
         huf_launches += launches[0]
         main_launches += launches[1]
         e2e_runs = e2e_ms(decompress_lanes, streams)
-        host_runs = e2e_ms(lambda s: decompress_lanes(s, entropy="host"),
-                           streams)
         # the steps, each synchronised: split with the Huff0 plan (of which
         # the plan alone: header parse and table build; and of that the
         # weights headers alone), H2D, huf kernel, LZ kernel, D2H of the
@@ -2072,8 +2069,7 @@ def main() -> int:
              huf_sync=sync,
              e2e_ms=statistics.median(e2e_runs), e2e_runs_ms=e2e_runs,
              e2e_gbps=len(corpus) / statistics.median(e2e_runs) / 1e6,
-             host_entropy_e2e_ms=statistics.median(host_runs),
-             host_entropy_e2e_runs_ms=host_runs, steps=steps, card=smi)
+             steps=steps, card=smi)
 
     # 5. kernel against plain, on the card: the first PLAIN_STREAMS streams
     # of each main level's batch; at the Huffman levels both kernels, on the
@@ -2098,7 +2094,7 @@ def main() -> int:
         max_err = max(max_err, rec["max_abs_err"])
         huf_err = max(huf_err, huf["max_abs_err"])
 
-    # 6. level sweep, ~1 MB each, default entropy route
+    # 6. level sweep, ~1 MB each
     sweep = corpus[:8 * BLOCK]
     sweep_launches = [0, 0]                     # huf_decode, lz_decode
     for level in SWEEP_LEVELS:

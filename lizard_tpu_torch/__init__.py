@@ -14,7 +14,11 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
                             ``parsers``, ``parser_optimal`` and ``price``,
                             and the Huff0 codec ``huf`` / ``huf_encode``
                             (whose headers and tables the device paths use)
-- ``ops.split``          -- host split of streams into a flat block batch
+- ``ops.host_plan``      -- the decoder's host split and Huff0 plan of a
+                            batch, one native pass (csrc/split_plan.cpp)
+- ``ops.split``          -- its plain version's split into a flat block
+                            batch; split_streams, with the native Huff0,
+                            is the complete batch tests compare against
 - ``ops.huf128``         -- Huff0 decode: the CUDA kernel csrc/huf_decode.cu,
                             its host plan, wrapper and plain PyTorch version
 - ``ops.lane_decode``    -- LZ decode: the CUDA kernel csrc/lz_decode.cu,
@@ -72,8 +76,8 @@ layout mirrors lizard_tpu, so each module's counterpart has the same name:
 Every entry point runs on the card unless the caller passes device="cpu";
 the oracle runs on the host, reached only through backend="ref" or its own
 modules.
-Decoding at levels 30-49 runs both kernels on the card (entropy="gpu", the
-default); entropy="host" decodes the Huffman stage with the native Huff0.
+Decoding has one route: the native host split and Huff0 plan, then at
+levels 30-49 the Huff0 kernel and the LZ kernel on the card.
 Compressing (``compress``, backend="gpu" by default, levels 10-49) finds
 matches and parses on the card, emits the codewords on the host, and at
 levels 30-49 packs the Huff0 bitstreams of every block on the card

@@ -20,7 +20,8 @@
 // delta read and a prefix compare. The first version (one thread a
 // position) ranked every node by a loop of up to 16 dependent single-byte
 // loads through L1/L2 (two thirds of a walk's cycles, the delta loads the
-// rest: tools/enc_v1_profile.py), and a warp waited for its longest walk.
+// rest, clocked on an H100: PERF.md, B6), and a warp waited for its
+// longest walk.
 //
 // Design:
 // - A walk from p never reaches back more than 65535 positions (cand and

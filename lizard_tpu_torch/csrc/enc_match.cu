@@ -33,8 +33,8 @@
 // first version ran everything inside that serial loop, one 128-thread CTA
 // a block: words built from single-byte loads, the probe ladder one probe
 // at a time, chk13, a 128-wide duplicate count per kept lane, three
-// barriers a segment, and the map stores (tools/enc_v1_profile.py clocks
-// it: the lookups, verify, probes and stores took 62-74% of a segment, the
+// barriers a segment, and the map stores (clocked on an H100, PERF.md,
+// B5: the lookups, verify, probes and stores took 62-74% of a segment, the
 // insert with its count 25-37%).
 //
 // Design: only the tables are serial, so only table work stays in the

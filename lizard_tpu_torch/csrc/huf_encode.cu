@@ -21,7 +21,7 @@
 // 9.5 us over 3.35 TB/s. A code's bit offset is the sum of the nbits before
 // it, a prefix sum, so no segment needs a serial walk; the work, ~15
 // instructions a symbol, is ~8 us of the card's issue rate. Measured on an
-// H100 (tools/huf_pack_ab.py, tools/huf_pack_variants.py; PERF.md), ~52
+// H100 (PERF.md, B8), ~52
 // us of device time a call at -35, the words' zeroing ~8 of it: the rest
 // is latency the blocks do not hide (their loads, scans and shared-memory
 // ORs issue at ~1/3 of the rate), and the longest segments, ~24,000

@@ -14,7 +14,8 @@ matches reach across frame blocks through the chain's own output, the
 reference's window_base=0), after the Huff0 kernel at levels 30-49
 (ops/fuse.py); the frame blocks may mix codeword families.
 `decompress_frame_lanes` is the JAX function of that name: blockIndependent
-frames of one family only. `compress_frame` is LizardF_compressFrame with
+frames of one family only, walked and decoded as decompress_frame does
+(_frame_blocks, decode_blocks). `compress_frame` is LizardF_compressFrame with
 the oracle encoder (ref/block_encode.py), linked or independent blocks,
 byte-equal to liblizard, serial on the host. `compress_frame_lanes`
 compresses every frame block on the card with the device encoder
@@ -47,11 +48,8 @@ from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
 from lizard_tpu_torch.ops.encode_tpu import encode_streams_tpu
 from lizard_tpu_torch.ops.fuse import decode_fused
 from lizard_tpu_torch.ops.host_plan import split_plan
-from lizard_tpu_torch.ops.lane_decode import (
-    decode_batch_lanes, decompress_lanes)
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
-from lizard_tpu_torch.ops.split import (
-    finalize, inner_block_spans, new_accumulator, split_blocks)
+from lizard_tpu_torch.ops.split import inner_block_spans
 from lizard_tpu_torch.ref import block_decode
 from lizard_tpu_torch.ref.block_encode import DICT, Ctx, Tables, compress_range
 from lizard_tpu_torch.runtime import XXH32, xxh32
@@ -331,63 +329,31 @@ def linked_frame(stream: bytes, data: bytes, block_size_id: int = 4) -> bytes:
     return bytes(out)
 
 
-def decompress_frame_lanes(src: bytes, device=None,
-                           entropy: str = "gpu") -> bytes:
-    """Decode one blockIndependent frame on `device` (the card unless
-    device="cpu"). Every compressed frame block is a stream of chained inner
-    blocks, decoded as one chain of the LZ kernel; stored blocks are copied.
-    At levels 30-49 the Huff0 kernel first decodes the Huffman-coded
-    streams into the LZ kernel's inputs on the device (entropy="gpu", the
-    default); entropy="host" decodes them on the host with the native
-    Huff0 instead (ops/lane_decode.py::decompress_lanes). Raises
-    FrameError for a linked frame and for any malformed frame or block."""
+def decompress_frame_lanes(src: bytes, device=None) -> bytes:
+    """Decode one blockIndependent frame of one codeword family on `device`
+    (the card unless device="cpu"), as decompress_frame does: every frame
+    block one chain of the LZ kernel, after the Huff0 kernel at levels
+    30-49. The JAX function of this name takes no other frame, so a linked
+    frame, a block whose level byte is not a level, and blocks of two
+    codeword families raise FrameError, as does any malformed frame or
+    block."""
     dev = resolve_device(device)
     info = parse_frame_header(src)
     if info.block_linked:
         raise FrameError("lane path requires blockIndependent frames")
-    p = info.header_size
-    entries = []   # ("stored", bytes) | ("stream", index)
-    streams = []
-    family = None
-    while True:
-        if p + 4 > len(src):
-            raise FrameError("missing endmark")
-        bsize = int.from_bytes(src[p:p + 4], "little")
-        p += 4
-        if bsize == 0:
-            break
-        stored = bool(bsize & LIZARDF_BLOCKUNCOMPRESSED_FLAG)
-        bsize &= ~LIZARDF_BLOCKUNCOMPRESSED_FLAG
-        if p + bsize > len(src):
-            raise FrameError("block truncated")
-        blob = src[p:p + bsize]
-        p += bsize
+    blocks, p = _frame_blocks(src, info.header_size)
+    families = set()
+    for stored, blob in blocks:
         if stored:
-            entries.append(("stored", blob))
             continue
         level = blob[0] if blob else 0
         if level not in LEVELS:
             raise FrameError("bad level byte")
-        fam = LEVELS[level].codewords
-        if family is None:
-            family = fam
-        elif family != fam:
-            raise FrameError("mixed codeword families")
-        entries.append(("stream", len(streams)))
-        streams.append(blob)
-    decoded = []
-    if streams:
-        try:
-            decoded = decompress_lanes(streams, device=dev, entropy=entropy)
-        except CorruptError as e:
-            raise FrameError(f"block decode failed: {e}") from e
-    max_block = LIZARDF_BLOCK_SIZES[info.block_size_id]
-    out = bytearray()
-    for kind, v in entries:
-        if kind == "stream" and len(decoded[v]) > max_block:
-            raise FrameError("block decodes beyond the frame's block size")
-        out += v if kind == "stored" else decoded[v]
-    out = bytes(out)
+        families.add(LEVELS[level].codewords)
+    if len(families) > 1:
+        raise FrameError("mixed codeword families")
+    out = _decode_frame_blocks(blocks, False,
+                               LIZARDF_BLOCK_SIZES[info.block_size_id], dev)
     whole_frame(src, frame_end(src, p, info, out))
     return out
 
@@ -439,8 +405,7 @@ def _frame_blocks(src: bytes, p: int) -> tuple[list[tuple[bool, bytes]], int]:
         p += bsize
 
 
-def decode_blocks(blocks, linked: bool, dev, entropy: str = "gpu",
-                  max_out: int | None = None,
+def decode_blocks(blocks, linked: bool, dev, max_out: int | None = None,
                   history: bytes = b"") -> list[bytes]:
     """The decoded bytes of each (stored, payload) frame block, all in one
     batch on `dev`: a linked frame is one chain (stream id 0; a stored
@@ -448,28 +413,20 @@ def decode_blocks(blocks, linked: bool, dev, entropy: str = "gpu",
     its own chain. A linked chain may be headed by `history`, the bytes
     decoded before these blocks, which their matches may reach: it is
     staged as literal-only inner blocks (split.split_stored) and not copied
-    back. One lz_decode launch, after one huf_decode launch at levels 30-49
-    on entropy="gpu". Raises CorruptError for a corrupt block, or one whose
-    output exceeds max_out."""
-    if entropy not in ("gpu", "host"):
-        raise ValueError(f"unknown entropy route {entropy!r}")
+    back. The host split and Huff0 plan is one native pass (ops/
+    host_plan.py::split_plan); then one lz_decode launch, after one
+    huf_decode launch at levels 30-49. Raises CorruptError for a corrupt
+    block, or one whose output exceeds max_out."""
     if history and not linked:
         raise ValueError("a history heads a linked chain only")
     head = [(True, history)] if history else []
     items = head + list(blocks)
     sids = [0 if linked else i for i in range(len(items))]
     skip = -(-len(history) // LIZARD_BLOCK_SIZE)    # the history's blocks
-    if entropy == "gpu":
-        batch, plan, ends = split_plan([blob for _, blob in items], sids,
-                                       [stored for stored, _ in items],
-                                       check_family=False)
-        decoded = decode_fused(batch, plan, dev, first=skip)
-    else:
-        acc = new_accumulator()
-        with profiling.span("split", "host"):
-            family, ends = split_blocks(items, sids, acc)
-            batch = finalize(acc, family)
-        decoded = decode_batch_lanes(batch, device=dev, first=skip)
+    batch, plan, ends = split_plan([blob for _, blob in items], sids,
+                                   [stored for stored, _ in items],
+                                   check_family=False)
+    decoded = decode_fused(batch, plan, dev, first=skip)
     with profiling.span("answer", "host"):
         parts = []
         for (stored, _), first, end in list(zip(items, [0] + ends,
@@ -481,12 +438,12 @@ def decode_blocks(blocks, linked: bool, dev, entropy: str = "gpu",
         return parts
 
 
-def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
-                         entropy: str) -> bytes:
+def _decode_frame_blocks(blocks, linked: bool, max_block: int,
+                         dev) -> bytes:
     """Every frame block of a frame in one batch (decode_blocks), joined;
     a corrupt block raises FrameError."""
     try:
-        parts = decode_blocks(blocks, linked, dev, entropy, max_block)
+        parts = decode_blocks(blocks, linked, dev, max_block)
     except CorruptError as e:
         raise FrameError(f"block decode failed: {e}") from e
     with profiling.span("answer", "host"):
@@ -494,13 +451,12 @@ def _decode_frame_blocks(blocks, linked: bool, max_block: int, dev,
 
 
 def decompress_one_frame(src: bytes, verify_checksum: bool = True,
-                         device=None,
-                         entropy: str = "gpu") -> tuple[bytes, int]:
+                         device=None) -> tuple[bytes, int]:
     """Decode the frame at the start of `src` on `device` (the card unless
     device="cpu"): (its bytes, the bytes it took). A skippable frame gives
     b"". Linked and blockIndependent frames, any level, families mixed
-    (see the module note); entropy as in decompress_frame_lanes. The port
-    of lizard_tpu/frame.py::decompress_one_frame; raises FrameError."""
+    (see the module note). The port of lizard_tpu/frame.py::
+    decompress_one_frame; raises FrameError."""
     if len(src) >= 8:
         magic = int.from_bytes(src[0:4], "little")
         if (magic & 0xFFFFFFF0) == LIZARDF_MAGIC_SKIPPABLE_START:
@@ -513,30 +469,28 @@ def decompress_one_frame(src: bytes, verify_checksum: bool = True,
         info = parse_frame_header(src)
         blocks, p = _frame_blocks(src, info.header_size)
     out = _decode_frame_blocks(blocks, info.block_linked,
-                               LIZARDF_BLOCK_SIZES[info.block_size_id], dev,
-                               entropy)
+                               LIZARDF_BLOCK_SIZES[info.block_size_id], dev)
     return out, frame_end(src, p, info, out, verify_checksum)
 
 
 @profiling.traced("decompress_frame", "host")
-def decompress_frame(src: bytes, verify_checksum: bool = True, device=None,
-                     entropy: str = "gpu") -> bytes:
+def decompress_frame(src: bytes, verify_checksum: bool = True,
+                     device=None) -> bytes:
     """Decode one frame (decompress_one_frame); raises FrameError on any
     byte after it, a second frame included (decompress_frames takes
     those)."""
-    out, consumed = decompress_one_frame(src, verify_checksum, device, entropy)
+    out, consumed = decompress_one_frame(src, verify_checksum, device)
     whole_frame(src, consumed)
     return out
 
 
-def decompress_frames(src: bytes, verify_checksum: bool = True, device=None,
-                      entropy: str = "gpu") -> bytes:
+def decompress_frames(src: bytes, verify_checksum: bool = True,
+                      device=None) -> bytes:
     """Decode a sequence of concatenated frames, skippable ones included."""
     out = bytearray()
     p = 0
     while p < len(src):
-        data, n = decompress_one_frame(src[p:], verify_checksum, device,
-                                       entropy)
+        data, n = decompress_one_frame(src[p:], verify_checksum, device)
         out += data
         p += n
     return bytes(out)

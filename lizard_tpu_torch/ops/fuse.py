@@ -1,6 +1,8 @@
 """Fused Huffman -> LZ decode: the port of lizard_tpu/ops/fuse.py. The
 Huff0 kernel's output reaches the LZ kernel's stream tensors without a
-host round trip.
+host round trip. It is the decoder's one route: lane_decode.
+decompress_lanes (and pallas_decode.decompress_pallas through it) and the
+frame decoders (frame.decode_blocks) all decode through decode_fused.
 
 Flow (decompress_lanes_fused):
   host:   split the streams without entropy-decoding them: every

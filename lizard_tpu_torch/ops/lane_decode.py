@@ -44,7 +44,7 @@ from lizard_tpu_torch.format.constants import (
     RUN_MASK_LZ4,
 )
 from lizard_tpu_torch.ops import _build
-from lizard_tpu_torch.ops.split import STREAMS, BlockBatch, split_streams
+from lizard_tpu_torch.ops.split import STREAMS, BlockBatch
 from lizard_tpu_torch.utils import profiling
 
 # per-chain status codes, shared with csrc/lz_decode.cu
@@ -520,18 +520,13 @@ def decompress_lanes(streams: list[bytes], device=None,
     """Decode independent compressed streams (either codeword family, all
     of one family) on `device`; returns the decoded bytes per stream.
 
-    entropy="gpu" (the default) decodes the Huffman-coded streams of
-    levels 30-49 with the Huff0 kernel straight into the LZ kernel's
-    inputs (ops/fuse.py::decompress_lanes_fused); entropy="host" decodes
-    them in the host split with the native Huff0 first. A batch with no
-    Huffman stream takes the same path either way."""
-    dev = resolve_device(device)
-    if entropy == "gpu":
-        # ops.fuse builds on this module, so it is imported here
-        from lizard_tpu_torch.ops.fuse import decompress_lanes_fused
-        return decompress_lanes_fused(streams, device=dev)
-    if entropy != "host":
-        raise ValueError(f"unknown entropy route {entropy!r}")
-    batch = split_streams(streams, entropy="host")
-    return join_streams(batch, decode_batch_lanes(batch, device=dev),
-                        len(streams))
+    The host split and Huff0 plan is one native pass; at levels 30-49 the
+    Huff0 kernel decodes the Huffman-coded streams straight into the LZ
+    kernel's inputs (ops/fuse.py::decompress_lanes_fused). `entropy` is
+    kept only because the benchmark's decode traffic file passes it: it
+    accepts "gpu" alone, and any other value raises ValueError."""
+    if entropy != "gpu":
+        raise ValueError(f"entropy must be 'gpu', not {entropy!r}")
+    # ops.fuse builds on this module, so it is imported here
+    from lizard_tpu_torch.ops.fuse import decompress_lanes_fused
+    return decompress_lanes_fused(streams, device=resolve_device(device))

@@ -8,7 +8,8 @@ previous block in VMEM and staging LIZv1 far sources by DMA from the output
 already written. That is the contract of the LZ kernel csrc/lz_decode.cu
 (ops/lane_decode.py::lz_decode, family 0 = fastLZ4, 1 = LIZv1), which
 decodes every chain of a batch with its window in global memory; so both are
-folded into it, and this module is a host side over one lz_decode launch.
+folded into it: decode_batch_pallas is a host side over one lz_decode
+launch, and decompress_pallas is the decoder's one route on one stream.
 None of the TPU layout is ported: no one-byte-per-i32-lane rows, halo,
 staging rows or DMA granularity.
 
@@ -25,8 +26,8 @@ from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
 from lizard_tpu_torch.ops.lane_decode import (
-    lz_decode, raise_on_status, stage_batch)
-from lizard_tpu_torch.ops.split import BlockBatch, split_streams
+    decompress_lanes, lz_decode, raise_on_status, stage_batch)
+from lizard_tpu_torch.ops.split import BlockBatch
 
 
 def to_slots(out, block_len, chains) -> torch.Tensor:
@@ -67,22 +68,16 @@ def decode_batch_pallas(batch: BlockBatch, device=None):
 
 
 def decompress_pallas(src: bytes, max_out: int, device=None) -> bytes:
-    """Decode one compressed stream (any level) on `device`: the host split
-    (levels 30-49 decode their Huffman streams there with the native
-    Huff0, as the JAX split_stream does), then decode_batch_pallas.
+    """Decode one compressed stream (any level) on `device`: the
+    decoder's one route, lane_decode.decompress_lanes (at levels 30-49
+    huf_decode, then one lz_decode launch).
 
     Returns the decoded bytes; raises CorruptError when they exceed
     max_out, as api.decompress does. The JAX function returns
     flat[:max_out] of its padded slot output instead: padding past the
     decoded length, and a silent cut below it, both artefacts of its
     layout; the two agree at max_out == the decoded size."""
-    batch = split_streams([src], entropy="host")
-    if batch.n_blocks == 0:
-        return b""
-    out, block_len = decode_batch_pallas(batch, device=device)
-    lens = block_len.cpu().tolist()
-    if sum(lens) > max_out:
+    out = decompress_lanes([src], device=device)[0]
+    if len(out) > max_out:
         raise CorruptError("output exceeds max_out")
-    data = out.cpu().numpy()
-    return b"".join(data[b * LIZARD_BLOCK_SIZE:b * LIZARD_BLOCK_SIZE + n]
-                    .tobytes() for b, n in enumerate(lens))
+    return out

@@ -4,10 +4,12 @@ block batch for the CUDA decode kernel (the port of lizard_tpu/ops/split.py).
 The block format (1 level byte + per-block 5 separated streams,
 lib/lizard_decompress.c:115-264) is parsed on the host; stream payloads are
 concatenated into flat uint8 tensors with per-block int64 offsets and
-lengths. Huffman-coded streams (levels 30-49) are either entropy-decoded
-during the split by the native Huff0 (entropy="host"), or left as holes of
-zero bytes that the Huff0 kernel fills (entropy="gpu"; ops/huf128.py, and
-ops/fuse.py for the fused path, where the holes are filled on the card).
+lengths. `split_streams` decodes the Huffman-coded streams (levels 30-49)
+with the native Huff0: the complete batch, which tests and tools use as a
+reference. The decoder's own split is ops/host_plan.py::split_plan, which
+leaves each Huffman-coded stream a hole for the Huff0 kernel to fill on
+the card; its plain version, ops/fuse.py::plan_split_plain, builds on the
+functions here, passing `hd` for those streams.
 
 Everything in a `BlockBatch` lies on the CPU; the decoder moves it to the
 device once (ops/lane_decode.py::stage_batch).
@@ -32,7 +34,6 @@ from lizard_tpu_torch.format.constants import (
     LIZARD_MIN_CLEVEL,
 )
 from lizard_tpu_torch.format.levels import LEVELS, Codewords
-from lizard_tpu_torch.ops.huf128 import huf_decompress_128
 from lizard_tpu_torch.utils import profiling
 
 STREAMS = ("flags", "literals", "off16", "off24")
@@ -294,36 +295,12 @@ def split_blocks(blocks, stream_ids, acc: dict, hd=None
     return family or Codewords.LZ4, ends
 
 
-def split_streams(streams: list[bytes], entropy: str = "host",
-                  device=None) -> BlockBatch:
-    """Split multiple independent compressed streams into one batch.
-
-    entropy="host" decodes Huffman-coded streams inline with the native
-    Huff0. entropy="gpu" leaves each as a hole and then decodes every
-    blob of the batch in one huf_decompress_128 call on `device` (the card
-    unless device="cpu"), and fills the holes; the batch is on the CPU
-    either way. (The main path, ops/fuse.py, fills the holes on the card
-    instead and never brings the entropy bytes back.)"""
-    if entropy not in ("host", "gpu"):
-        raise ValueError(f"unknown entropy route {entropy!r}")
+def split_streams(streams: list[bytes]) -> BlockBatch:
+    """Split multiple independent compressed streams into one batch, each
+    Huffman-coded stream decoded inline with the native Huff0."""
     acc = new_accumulator()
-    if entropy == "host":
-        with profiling.span("split", "host"):
-            return finalize(acc, split_into(streams, acc))
-    pend = []
-
-    def hole(blob, orig, kind):
-        buf = np.zeros(orig, np.uint8)
-        pend.append((blob, orig, buf))
-        return buf
     with profiling.span("split", "host"):
-        family = split_into(streams, acc, hole)
-    if pend:
-        outs = huf_decompress_128([(blob, orig) for blob, orig, _ in pend],
-                                  device=device)
-        for (_, _, buf), out in zip(pend, outs):
-            buf[:] = np.frombuffer(out, np.uint8)
-    return finalize(acc, family)
+        return finalize(acc, split_into(streams, acc))
 
 
 def from_reference_batch(fields: dict[str, np.ndarray], codewords) -> BlockBatch:

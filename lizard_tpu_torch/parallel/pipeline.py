@@ -162,24 +162,23 @@ def decode_frame_sharded(frame: bytes, devices=None) -> bytes:
     return out
 
 
-def decode_streams_sharded_lanes(streams: list[bytes], devices=None,
-                                 entropy: str = "gpu") -> list[bytes]:
+def decode_streams_sharded_lanes(streams: list[bytes],
+                                 devices=None) -> list[bytes]:
     """Decode independent compressed streams with the port's production
     decoder, ops/lane_decode.py::decompress_lanes (lz_decode, after
-    huf_decode at levels 30-49 on entropy="gpu"), over `devices`: streams
-    cut in order into one contiguous run a device, one call a shard.
-    Returns the decoded bytes per stream.
+    huf_decode at levels 30-49), over `devices`: streams cut in order into
+    one contiguous run a device, one call a shard. Returns the decoded
+    bytes per stream.
 
-    entropy="gpu" (the port's default) decodes the Huff0 streams on the
-    device; "host" with the native Huff0 in the split. The JAX function's
-    default is "host", and it refuses shards of two codeword families or of
-    unequal chain depths, which its one TPU kernel instance over all shards
-    cannot mix; here each shard is its own launch and such input decodes.
-    Its TPU geometry knobs (spb, rtiles, groups, il) have no counterpart."""
+    The Huff0 streams are decoded on the device; the JAX function's
+    default decodes them on the host, and it refuses shards of two
+    codeword families or of unequal chain depths, which its one TPU kernel
+    instance over all shards cannot mix; here each shard is its own launch
+    and such input decodes. Its TPU geometry knobs (spb, rtiles, groups,
+    il) have no counterpart."""
     devs = resolve_devices(devices)
     outs = run_sharded(
-        devs, lambda part, d: (decompress_lanes(part, device=d,
-                                                entropy=entropy)
+        devs, lambda part, d: (decompress_lanes(part, device=d)
                                if part else []),
         _contiguous(streams, len(devs)))
     return [b for o in outs for b in o]

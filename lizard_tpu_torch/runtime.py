@@ -3,8 +3,8 @@
 
 The port uses these of its entry points: the native encoder (`compress`, all
 levels 10-49), the scalar block decoder (`decompress`, a cross-check), the
-Huff0 stream decoder (`huf_decompress`, the host entropy route of levels
-30-49), the frame decoder (`decompress_frame`, concatenated frames, a
+Huff0 stream decoder (`huf_decompress`, for split.split_streams, the
+reference batch of levels 30-49), the frame decoder (`decompress_frame`, concatenated frames, a
 cross-check), `xxh32` (frame checksums) and `xxh64`, and the device
 encoder's host stage: the token emitters (`emit_lz4`, `emit_liz`,
 `emit_liz_far`) and the Huff0 stream encoder (`huf_compress`). When the

@@ -145,7 +145,7 @@ def test_huf_kernel_matches_plain(level, card):
     assert plan.segs.shape[0] >= 4 * len(datas)      # Huffman blobs present
     (ks, kd), (ps, pd) = _huf_kernel_and_plain(batch, plan, card)
     assert torch.equal(ks, ps) and (ks == th.OK).all()
-    host = split_streams(streams, entropy="host")
+    host = split_streams(streams)
     for k in STREAMS:
         assert torch.equal(kd[k], pd[k]), k
         assert torch.equal(kd[k].cpu(), getattr(host, k)), k

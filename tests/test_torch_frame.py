@@ -15,7 +15,9 @@ import lizard_tpu_torch.frame as tframe
 from lizard_tpu.utils.datagen import gen, text_like
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.ops.enc_lanes import encode_streams_lanes
+from lizard_tpu_torch.ops.fuse import build_fused_plan
 from lizard_tpu_torch.runtime import xxh32
+from lizard_tpu_torch.utils import profiling
 
 
 def _data(n, seed):
@@ -48,6 +50,27 @@ def test_frame_with_stored_blocks_and_huffman_level():
                                        content_size=True)
     assert lizard_tpu_torch.decompress_frame(frame, device="cpu") == data
     assert jframe.decompress_frame(frame) == data
+
+
+def test_lanes_frame_shares_the_frame_walk():
+    """decompress_frame_lanes decodes a -41 blockIndependent frame with a
+    stored block (an incompressible part) as decompress_frame does: one
+    batch in which every frame block is a chain, the stored one of
+    literal-only inner blocks, not joined on the host; the same bytes as
+    the JAX decoder."""
+    rng = np.random.default_rng(19)
+    data = (text_like(131_072, seed=19)
+            + rng.integers(0, 256, 131_072, dtype=np.uint8).tobytes()
+            + gen(200_000, seed=19, proba=0.6))
+    frame = tframe.compress_frame_fast(data, 41, block_size_id=1)
+    blocks = _frame_blocks(frame)
+    assert [s for s, _ in blocks] == [False, True, False, False]
+    assert build_fused_plan([blocks[0][1]])[1].segs.shape[0]   # Huff0 blobs
+    before = profiling.counters()["lz_decode.chains"]
+    got = tframe.decompress_frame_lanes(frame, device="cpu")
+    assert profiling.counters()["lz_decode.chains"] == before + len(blocks)
+    assert got == data == jframe.decompress_frame(frame)
+    assert got == tframe.decompress_frame(frame, device="cpu")
 
 
 def test_malformed_frames_raise():
@@ -150,7 +173,6 @@ def test_linked_frames_equal_reference(level):
     assert want == data
     assert tframe.decompress_frame(frame, device="cpu") == want
     assert lizard_tpu_torch.decompress_frame(frame, device="cpu") == want
-    assert tframe.decompress_frame(frame, device="cpu", entropy="host") == want
     independent = bytearray(frame)
     independent[4] |= 1 << 5
     with pytest.raises(tframe.FrameError, match="block decode failed"):

@@ -92,7 +92,7 @@ def test_tally_rides_the_status_copy():
     bytes more, and counts it; without one the readback is the plain one,
     with no pass-2 counter."""
     streams = [native.compress(_data(300_000, seed=5), LEVEL)]
-    batch = split_streams(streams, entropy="host")
+    batch = split_streams(streams)
     args = tld.stage_batch(batch, "cpu")
     out, block_len, status, tally = tld.lz_decode(**args, tally=True)
     assert tally is None

@@ -1,6 +1,6 @@
 """The port's fused Huffman -> LZ decode (lizard_tpu_torch.ops.fuse, the
-default entropy="gpu" route of decompress_lanes and decompress_frame_lanes)
-against the JAX package: its host-entropy split
+one route of decompress_lanes and decompress_frame_lanes) against the JAX
+package: its host-entropy split
 (lizard_tpu.ops.split.split_streams(entropy="host")), the native decoder,
 lizard_tpu.frame.decompress_frame, and the input bytes. The port runs its
 plain PyTorch versions here (device="cpu"). Every stream is >= 20 KB and
@@ -46,19 +46,17 @@ def test_decompress_lanes_default_entropy(level):
     got = tld.decompress_lanes(streams, device="cpu")
     assert got == datas
     assert got == [jrt.decompress(s, len(d)) for s, d in zip(streams, datas)]
-    assert got == tld.decompress_lanes(streams, device="cpu", entropy="host")
 
 
 @pytest.mark.parametrize("level", [35, 41])
 def test_filled_batch_equals_reference(level):
-    """The holes filled by the Huff0 decode, on both of the port's routes
-    (the split's and the fused plan's), equal the JAX host-entropy batch
-    carried over with from_reference_batch, array by array."""
+    """The holes of the fused plan filled by the Huff0 decode equal the JAX
+    host-entropy batch carried over with from_reference_batch, array by
+    array."""
     streams = [jrt.compress(d, level) for d in _datas(level)]
     ref = jsplit.split_streams(streams, entropy="host")
     want = tsplit.from_reference_batch(
         {n: np.asarray(getattr(ref, n)) for n in FIELDS}, ref.codewords)
-    split = tsplit.split_streams(streams, entropy="gpu", device="cpu")
     batch, plan = build_fused_plan(streams)
     assert _kinds(plan) == {"flags", "literals"}
     holed = {k: getattr(batch, k).clone() for k in tsplit.STREAMS}
@@ -66,7 +64,6 @@ def test_filled_batch_equals_reference(level):
                            **{k: getattr(batch, k) for k in tsplit.STREAMS})
     assert (status == 0).all()
     for name in FIELDS:
-        assert torch.equal(getattr(split, name), getattr(want, name)), name
         assert torch.equal(getattr(batch, name), getattr(want, name)), name
     assert any(not torch.equal(holed[k], getattr(batch, k))
                for k in tsplit.STREAMS)
@@ -126,9 +123,11 @@ def test_offset_stream_blobs_fill_their_holes():
     assert [jrt.decompress(s, len(d)) for s, d in zip(streams, datas)] \
         == datas
     ref = jsplit.split_streams(streams, entropy="host")
-    split = tsplit.split_streams(streams, entropy="gpu", device="cpu")
+    status = th.huf_decode(**plan.stage("cpu"),
+                           **{k: getattr(batch, k) for k in tsplit.STREAMS})
+    assert (status == 0).all()
     for name in tsplit.STREAMS:
-        np.testing.assert_array_equal(getattr(split, name).numpy(),
+        np.testing.assert_array_equal(getattr(batch, name).numpy(),
                                       getattr(ref, name))
 
 
@@ -159,7 +158,6 @@ def test_frames(level, bsid, n):
     assert frame[5] >> 4 == bsid
     got = decompress_frame_lanes(frame, device="cpu")
     assert got == data == jframe.decompress_frame(frame)
-    assert got == decompress_frame_lanes(frame, device="cpu", entropy="host")
 
 
 def test_corrupt_blob_names_stream_and_block():
@@ -184,8 +182,6 @@ def test_gpu_entropy_needs_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tld.decompress_lanes(streams)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tsplit.split_streams(streams, entropy="gpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         th.huf_decompress_128([(huf_compress(text_like(3000, 1)), 3000)])
     with pytest.raises(ValueError, match="entropy"):

@@ -18,6 +18,7 @@ from lizard_tpu.ops import split as jsplit
 from lizard_tpu.utils.datagen import gen, text_like
 from lizard_tpu_torch.errors import CorruptError
 from lizard_tpu_torch.format.constants import LIZARD_BLOCK_SIZE
+from lizard_tpu_torch.ops import fuse as tfuse
 from lizard_tpu_torch.ops import lane_decode as tld
 from lizard_tpu_torch.ops import pallas_decode as tpd
 from lizard_tpu_torch.ops.split import (
@@ -168,12 +169,12 @@ def test_one_launch_and_device_rule(monkeypatch):
     data = gen(140_000, seed=10)
     s = jrt.compress(data, 21)
     calls = []
-    real = tpd.lz_decode
+    real = tfuse.lz_decode
 
     def counted(**kw):
         calls.append(kw["chains"].shape[0])
         return real(**kw)
-    monkeypatch.setattr(tpd, "lz_decode", counted)
+    monkeypatch.setattr(tfuse, "lz_decode", counted)
     assert tpd.decompress_pallas(s, len(data), device="cpu") == data
     assert calls == [1]                      # one call, one chain
     before = profiling.counters()["lz_decode.launches"]

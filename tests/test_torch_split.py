@@ -68,16 +68,6 @@ def test_from_reference_batch_rejects_table_outside_streams():
         tsplit.from_reference_batch(fields, "LZ4")
 
 
-def test_entropy_routes():
-    _, streams = _streams(35)
-    host = tsplit.split_streams(streams, entropy="host")
-    gpu = tsplit.split_streams(streams, entropy="gpu", device="cpu")
-    for name in FIELDS:
-        assert torch.equal(getattr(gpu, name), getattr(host, name)), name
-    with pytest.raises(ValueError):
-        tsplit.split_streams(streams, entropy="tpu")
-
-
 def test_chain_table():
     sid = torch.tensor([0, 0, 0, 1, 2, 2], dtype=torch.int64)
     want = [[0, 3, 0], [3, 1, 3 << 17], [4, 2, 4 << 17]]
