@@ -542,7 +542,11 @@ def encode_against_plain(te, teh, blocks, level: int, what: str) -> dict:
     if te.huffman_level(level):
         emitted = [te.emit_streams(d, *a, level)
                    for d, a in zip(blocks, te.token_arrays(tok, counts))]
-        plan = teh.plan_huf_streams(te.huf_candidates(emitted))
+        cands = te.huf_candidates(emitted)
+        plan = teh.plan_huf_streams(cands)
+        if not same_huf_plan(plan, teh.plan_huf_streams_plain(cands)):
+            raise AssertionError(f"{what}: the native Huff0 plan differs "
+                                 f"from the plain plan")
         if plan.coded:
             hargs = plan.stage("cuda")
             k = teh.huf_pack(**hargs)
@@ -571,21 +575,13 @@ def e2e_encode_ms(te, chunks, level: int, **kw) -> list[float]:
     return runs
 
 
-def huf_header_ms(teh, cands) -> float:
-    """Host-clock milliseconds of the header side of a Huff0 plan alone:
-    count, table log, code table and weights header of every stream that
-    passes the count gates."""
-    from lizard_tpu_torch.ref import huf_encode as hr
-    t = time.perf_counter()
-    for src in cands:
-        count, max_sym, largest = hr.fse_count(src, 255)
-        if largest == len(src) or largest <= (len(src) >> 7) + 1:
-            continue
-        log = hr.fse_optimal_table_log(hr.HUF_TABLELOG_DEFAULT, len(src),
-                                       max_sym, minus=1)
-        nb, _, log = hr.huf_build_ctable(count, max_sym, log)
-        hr.huf_write_ctable(nb, max_sym, log)
-    return (time.perf_counter() - t) * 1e3
+def same_huf_plan(a, b) -> bool:
+    """Two HufEncPlans are equal field for field."""
+    import torch
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("data", "segs", "tables"))
+            and all(getattr(a, f) == getattr(b, f)
+                    for f in ("n_words", "coded", "headers", "blobs")))
 
 
 def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
@@ -647,7 +643,12 @@ def encode_level(te, teh, tld, runtime, chunks, level: int, smi: str) -> dict:
         t = time.perf_counter()
         plan = teh.plan_huf_streams(cands)
         steps["huf_plan_ms"] = (time.perf_counter() - t) * 1e3
-        steps["of_which_headers_ms"] = huf_header_ms(teh, cands)
+        t = time.perf_counter()
+        pplan = teh.plan_huf_streams_plain(cands)
+        steps["huf_plan_plain_ms"] = (time.perf_counter() - t) * 1e3
+        if not same_huf_plan(plan, pplan):
+            raise AssertionError("the native Huff0 plan differs from the "
+                                 "plain plan")
         t = time.perf_counter()
         hargs = plan.stage("cuda")
         torch.cuda.synchronize()

@@ -13,6 +13,11 @@ each stream, builds the code table and weights header of each stream that
 passes (ref/huf_encode.py) and lays the batch out; the kernel packs every
 segment's codes into 32-bit little-endian words; `finish` cuts the words
 into bitstreams and assembles the blobs with the reference's last gates.
+The plan is one native pass over the batch (csrc/huf_plan.cpp, built by
+runtime.own_library); `plan_huf_streams_plain` is the same plan in Python
+over ref/huf_encode.py, which the tests hold the native pass against. The
+counter "huf_plan.native_streams" adds up the streams the native pass
+planned, stored and RLE ones included.
 None of the TPU layout is kept: no 8-stream sublane packing, no (8, 128)
 tiles, no host reordering of the symbols (the kernel reads them backwards).
 The pack kernel packs a segment with a thread block, each warp a
@@ -35,9 +40,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lizard_tpu_torch import runtime
 from lizard_tpu_torch.device import resolve_device
 from lizard_tpu_torch.format.constants import HUF_BLOCKSIZE_MAX
 from lizard_tpu_torch.ops import _build
+from lizard_tpu_torch.ops.host_plan import _ptr
 from lizard_tpu_torch.ref.huf_encode import (
     HUF_TABLELOG_DEFAULT,
     fse_count,
@@ -55,6 +62,7 @@ PACK_STEP = 512                # symbols a warp packs a step (csrc)
 PACK_WHOLE = 17861             # a segment up to this long: one round (csrc)
 PACK_ROUND = 6016              # the symbols of a round past it (csrc)
 PROF_FIELDS = 9                # huf_pack_profile's columns
+HEADER_MAX = 128               # bytes of a weights header, at most (csrc)
 
 # per-segment status codes, shared with csrc/huf_encode.cu
 OK = 0
@@ -106,7 +114,7 @@ class HufEncPlan:
                 "tables": self.tables.to(device), "n_words": self.n_words}
 
 
-def plan_huf_streams(streams) -> HufEncPlan:
+def plan_huf_streams_plain(streams) -> HufEncPlan:
     """The host plan of HUF_compress for every stream of `streams`, with the
     gates of huf_compress_tpu (lizard_tpu/ops/enc_huf.py:304-320): an empty
     stream is stored; a stream of one byte value is RLE (its first byte);
@@ -154,6 +162,74 @@ def plan_huf_streams(streams) -> HufEncPlan:
         tables=torch.from_numpy(np.stack(tables) if tables else
                                 np.zeros((0, TABLE_ENTRIES), np.int32)),
         n_words=words, coded=coded, headers=headers, blobs=blobs)
+
+
+# csrc/huf_plan.cpp: its status codes (the plain version's ValueErrors),
+# the fields of err[] and sizes[], and the kind of a stream of one byte
+# value (the others: 0 stored, 2 coded)
+PLAN_TEXT = {1: "huffLog too large", 2: "normalizeM2 failed",
+             3: "writeNCount failed", 4: "writeNCount overran symbols",
+             5: "ctable spread failed"}
+ERR_CODE, ERR_STREAM = range(2)
+SZ_CODED, SZ_BYTES, SZ_WORDS = range(3)
+RLE = 1
+
+
+@functools.cache
+def _plan_lib() -> ctypes.CDLL:
+    """csrc/huf_plan.cpp (runtime.own_library), its entry declared and its
+    constants checked against this module's."""
+    lib = runtime.own_library("huf_plan")
+    consts = (ctypes.c_int64 * 7)()
+    lib.ltt_huf_plan_consts(consts)
+    if tuple(consts) != (ERR_STREAM + 1, SZ_WORDS + 1, TABLE_ENTRIES,
+                         SEGMENTS, FIELDS, HEADER_MAX, HUF_BLOCKSIZE_MAX):
+        raise RuntimeError("csrc/huf_plan.cpp does not match ops/enc_huf.py")
+    lib.ltt_huf_plan.restype = ctypes.c_int64
+    lib.ltt_huf_plan.argtypes = ([ctypes.c_int64, ctypes.c_char_p]
+                                 + [ctypes.c_void_p] * 10)
+    return lib
+
+
+def plan_huf_streams(streams) -> HufEncPlan:
+    """plan_huf_streams_plain in one native pass over the batch (csrc/
+    huf_plan.cpp), one ctypes call whatever the number of streams: the
+    streams go joined, with their offsets; the outputs are allocated for
+    every stream and the pass fills the first rows. Equal to the plain plan
+    field for field; `data`, `segs` and `tables` are views of the first
+    rows of the outputs."""
+    bufs = [s if isinstance(s, bytes) else bytes(s) for s in streams]
+    n = len(bufs)
+    offs = np.zeros(n + 1, np.int64)
+    offs[1:] = np.cumsum(np.fromiter(map(len, bufs), np.int64, n))
+    joined = b"".join(bufs)
+    kind = np.empty(n, np.int8)
+    coded = np.empty(n, np.int64)
+    data = torch.empty(len(joined), dtype=torch.uint8)
+    segs = torch.empty((SEGMENTS * n, FIELDS), dtype=torch.int64)
+    tables = torch.empty((n, TABLE_ENTRIES), dtype=torch.int32)
+    heads = np.empty(n * HEADER_MAX, np.uint8)
+    head_len = np.empty(n, np.int64)
+    sizes = np.zeros(SZ_WORDS + 1, np.int64)
+    err = np.zeros(ERR_STREAM + 1, np.int64)
+    if _plan_lib().ltt_huf_plan(n, joined, *map(_ptr, (
+            offs, kind, coded, data, segs, tables, heads, head_len, sizes,
+            err))):
+        code = int(err[ERR_CODE])
+        raise ValueError(PLAN_TEXT.get(
+            code, f"huf_plan failed with status {code}"))
+    n_coded, n_bytes, n_words = sizes.tolist()
+    raw = heads[:n_coded * HEADER_MAX].tobytes()
+    headers = [raw[t * HEADER_MAX:t * HEADER_MAX + k]
+               for t, k in enumerate(head_len[:n_coded].tolist())]
+    blobs = [None] * n
+    for i in np.flatnonzero(kind == RLE).tolist():
+        blobs[i] = bufs[i][:1]
+    profiling.count("huf_plan.native_streams", n)
+    return HufEncPlan(data=data[:n_bytes], segs=segs[:SEGMENTS * n_coded],
+                      tables=tables[:n_coded], n_words=n_words,
+                      coded=coded[:n_coded].tolist(), headers=headers,
+                      blobs=blobs)
 
 
 def _check(data, segs, tables, n_words):

@@ -20,8 +20,9 @@ returns False.
 into build/lizard_tpu_torch/ under that directory's lock:
 csrc/xxh32_stream.cpp (`XXH32`, a streaming xxh32 over chunks, for the
 incremental frame layer, whose checksums see the content a piece at a
-time) and csrc/split_plan.cpp (the decoder's host split and Huff0 plan,
-ops/host_plan.py).
+time), csrc/split_plan.cpp (the decoder's host split and Huff0 plan,
+ops/host_plan.py) and csrc/huf_plan.cpp (the encoder's Huff0 plan,
+ops/enc_huf.py).
 """
 
 import ctypes
