@@ -29,7 +29,9 @@ Each device step has a wrapper (`match_find`, `chain_walk`, `parse_tokens`)
 and a plain PyTorch version with the same signature and outputs
 (`*_plain`). A CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel or raises. Their calls are counted in utils/profiling.py as
-"match_find.launches", "chain_walk.launches" and "parse_tokens.launches".
+"match_find.launches", "chain_walk.launches" and "parse_tokens.launches";
+while spans record, encode_blocks_lanes also counts what the chain walk
+did, "chain_walk.positions" and "chain_walk.replaced" (chain_tally).
 """
 
 import ctypes
@@ -459,6 +461,26 @@ def chain_walk(data, lens, maps, cfg: EncCfg) -> torch.Tensor:
         return _chain_launch(data, maps, cfg, None)
 
 
+def chain_tally(maps, out):
+    """What chain_walk did with `maps` to give `out`, for token_arrays to
+    read back, while spans record (profiling.active()): an int64 tensor
+    [positions, replaced] on the maps' device, the positions whose map 0
+    held a candidate and those of them whose match the walk replaced with
+    a longer one, summed on the stream with no copy and no
+    synchronisation. Else None, with no operation at all. The flags are
+    summed first in bytes, SEG (128) of them into each byte, then those
+    bytes: summing them straight into int64 would first cast them, 8
+    bytes a position."""
+    if not profiling.active():
+        return None
+    m0 = maps[:, 0]
+    hit = torch.empty((2, *m0.shape), dtype=torch.bool, device=m0.device)
+    torch.ne(m0, 0, out=hit[0])
+    torch.ne(out[:, 0], m0, out=hit[1])
+    return hit.view(torch.uint8).view(2, SEG, -1).sum(
+        1, dtype=torch.uint8).sum(1)
+
+
 def chain_walk_profile(data, lens, maps, cfg: EncCfg):
     """chain_walk on CUDA tensors, with a profile beside the output: (out,
     prof int64 (CTAs, 6)), one row per CTA (a slice of 8192 positions of a
@@ -774,13 +796,23 @@ def parse_tokens_plain(data, lens, maps, cfg: EncCfg):
     return tok[:, :T], counts.to(torch.int32)
 
 
-def token_arrays(tok, counts) -> list[tuple[np.ndarray, ...]]:
+def token_arrays(tok, counts, tally=None) -> list[tuple[np.ndarray, ...]]:
     """Per block, the (st, ml, off) int64 numpy arrays of a parse_tokens
     result, in parse order. Copies the counts, then only the used prefix of
-    the token slots, to the host."""
+    the token slots, to the host. A chain_walk tally comes back in the
+    same copy as the counts, and counts "chain_walk.positions" and
+    "chain_walk.replaced"."""
     with profiling.span("tokens", "device"):
-        profiling.count_bytes("d2h_bytes", counts)
-        c = counts.cpu().numpy()
+        sent = counts if tally is None else torch.cat(
+            [counts, tally.view(torch.int32)])
+        profiling.count_bytes("d2h_bytes", sent)
+        sent = sent.cpu()
+        c = sent[:counts.numel()].numpy()
+        if tally is not None:
+            positions, replaced = sent[counts.numel():].clone().view(
+                torch.int64).tolist()
+            profiling.count("chain_walk.positions", positions)
+            profiling.count("chain_walk.replaced", replaced)
         if (c < 0).any():
             raise RuntimeError(f"parse_tokens overflowed its token slots in "
                                f"block {int(np.flatnonzero(c < 0)[0])}")
@@ -887,9 +919,12 @@ def encode_blocks_lanes(blocks, level=10, cfg: EncCfg = None, device=None,
         part = blocks[base:base + GROUP]
         data, lens = pack_blocks(part, cfg, dev)
         maps = match_find(data, lens, cfg)
+        tally = None
         if cfg.chain:
-            maps = chain_walk(data, lens, maps, cfg)
-        toks = token_arrays(*parse_tokens(data, lens, maps, _parse_cfg(cfg)))
+            won = chain_walk(data, lens, maps, cfg)
+            maps, tally = won, chain_tally(maps, won)
+        toks = token_arrays(*parse_tokens(data, lens, maps, _parse_cfg(cfg)),
+                            tally)
         with profiling.span("emit", "host"):
             emitted = [emit_streams(d, *t, level) for d, t in zip(part, toks)]
         blobs = None

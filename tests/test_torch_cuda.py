@@ -578,6 +578,38 @@ def test_match_chain_kernels_edge_blocks(level, tier, card):
                 for s, d in zip(streams, blocks)] == blocks
 
 
+@pytest.mark.parametrize("level", [46, 49])
+def test_chain_tally_equals_plain(level, card):
+    """While spans record, chain_tally of the card's walk equals that of
+    the plain version's, and a frame encode at the level on the card
+    counts the same "chain_walk.positions" and "chain_walk.replaced" as on
+    the CPU, with the same bytes; with spans off there is no tally."""
+    cfg = te.cfg_for_level(level)
+    blocks = [gen(cfg.n, level, proba=0.6), text_like(cfg.n, level + 1),
+              gen(cfg.n // 2, level + 2, proba=0.4)]
+    data, lens = te.pack_blocks(blocks, cfg, card)
+    maps = te.match_find(data, lens, cfg)
+    won = te.chain_walk(data, lens, maps, cfg)
+    assert te.chain_tally(maps, won) is None
+    with profiling.recording():
+        tally = te.chain_tally(maps, won)
+        cpu_maps = maps.cpu()
+        plain = te.chain_tally(cpu_maps, te.chain_walk_plain(
+            data.cpu(), lens.cpu(), cpu_maps, cfg))
+    assert tally.device.type == "cuda"
+    assert tally.cpu().tolist() == plain.tolist()
+    assert 0 < plain[1] < plain[0]
+    seen = []
+    for dev in (card, "cpu"):
+        profiling.reset()
+        with profiling.recording():
+            f = api.compress_frame(b"".join(blocks), level=level,
+                                   block_size_id=4, device=dev)
+        n = profiling.counters()
+        seen.append((f, n["chain_walk.positions"], n["chain_walk.replaced"]))
+    assert seen[0] == seen[1] and seen[0][1] > seen[0][2] > 0
+
+
 def ltt_compress(data, level, device=None):
     from lizard_tpu_torch import compress
     return compress(data, level, backend="gpu", device=device)
